@@ -3,7 +3,7 @@ surface (every Config field), presets, multi-run training with
 best-by-validation tracking.
 
     python -m ocn_tpu_torch.cli --dataset collab --predictor cn5 --preset \\
-        --ell_tables false --k_small 0 --epochs 3
+        --epochs 3
 
 runs on the CUDA device; ``--platform cpu`` runs on the CPU.  Boolean flags
 take an optional value (``--ln``, ``--ln true``, ``--ln false``) or the

@@ -113,22 +113,14 @@ class Config:
                                      # non-ELL path, N*k3 table memory on the
                                      # ELL path); sensitivity study in
                                      # BASELINE.md round 5.
-    window_table: bool = False       # hoist y = stop_grad(h)[g.col] and read
-                                     # frame rows as contiguous CSR window
-                                     # slices via the Pallas window-DMA
-                                     # kernel (one 36 KB copy per window).
-                                     # The kernel microbenches 2.4x faster
-                                     # than the XLA random gather (1.9 vs
-                                     # 4.5 ms per 4096x64 chunk) but loses
-                                     # ~8% END TO END (same-day A/B on chip:
-                                     # 67.8k vs 74.0k edges/s) — the hoisted
-                                     # y-table build (one E-row gather per
-                                     # step) + the (B, J, H) HBM round-trip
-                                     # of the kernel output eat the win — so
-                                     # it is OFF by default and kept as the
-                                     # opt-in hand-written reference point.
-                                     # On CPU the XLA fallback is
-                                     # bit-identical (tests cover it).
+    window_table: bool = False       # hoist y = h.detach()[g.col] once per
+                                     # step and read frame rows as
+                                     # contiguous CSR windows of it through
+                                     # the window-gather kernel
+                                     # (ops/window_gather.py).  Off by
+                                     # default, as in ocn_tpu, where a TPU
+                                     # v5e A/B measured it slower end to
+                                     # end; its H100 numbers are in PERF.md.
     cn2_counts: bool = False         # True => pygho-stack path-count values
     neg_mode: str = "uniform"        # "uniform": PyG negative_sampling non-
                                      # edges; "randint_target": keep sources,
@@ -470,11 +462,8 @@ def require_supported(cfg: Config) -> None:
     """Raise NotImplementedError naming the first field whose value this
     slice of the port does not implement."""
     unsupported = (
-        ("ell_tables", cfg.ell_tables, "ELL window tables"),
-        ("k_small", cfg.k_small > 0, "the dual-K occupancy split"),
         ("frame_group", cfg.frame_group > 1, "grouped frame builds"),
         ("hoist_frames", cfg.hoist_frames, "hoisted frame builds"),
-        ("window_table", cfg.window_table, "the window-table frame matmul"),
         ("dtype", cfg.dtype == "bfloat16", "bfloat16 training"),
         ("cndeg", cfg.cndeg > 0, "CN-set degree caps"),
         ("two_hop_mode", cfg.two_hop_mode == "sddmm", "on-the-fly A^2 counts"),

@@ -3,7 +3,8 @@ OCNPredictor; reference CNLinkPredictorOringin).
 
     column-normalize cn1 (quirk rule, empty columns filled with 0) -> EMA inner product <cn2, ncn1> ->
     Gram-Schmidt cn2 against ncn1 on the union pattern -> column-normalize
-    -> xcn = ncn @ h through one shared gather -> MLPs -> head
+    -> xcn = ncn @ h through one shared gather (on the window-table path,
+    window copies of the hoisted table) -> MLPs -> head
 
 The EMA inner product (``innerprod``) and its counter (``n``) are buffers
 that update only in training mode, once per call (= per link chunk).
@@ -51,8 +52,12 @@ class OCNPredictor(nn.Module):
             self.n.zero_()
 
     def forward(self, x: torch.Tensor, n_nodes: int, cn1: CNFrame, cn2: CNFrame,
-                tar_ei: torch.Tensor,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                tar_ei: torch.Tensor, gen: Optional[torch.Generator] = None,
+                y: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``y``/``pos``: the window-table path (ops/frame.py matmul_shared),
+        the hoisted table y = x.detach()[g.col] and the candidate frame's
+        CSR window positions."""
         fidx = frame_index(cn1.ids, n_nodes)
         ncn1, ocn2, new_ema, new_n = orthogonalize(
             cn1, cn2, self.innerprod, self.n, self.training, 0.0, fidx)
@@ -60,7 +65,7 @@ class OCNPredictor(nn.Module):
             with torch.no_grad():
                 self.innerprod.copy_(new_ema)
                 self.n.copy_(new_n)
-        xcn1, xcn2 = matmul_shared([ncn1, ocn2], x, fidx)
+        xcn1, xcn2 = matmul_shared([ncn1, ocn2], x, fidx, y=y, pos=pos)
         xij = self.xijlin(x[tar_ei[0]] * x[tar_ei[1]], gen)
         xcn1 = self.xcn1lin(xcn1, gen)
         xcn2 = self.xcn2lin(xcn2, gen)

@@ -11,12 +11,12 @@ empty lanes) and differs only in its value array (B, K):
 
 where w_i is the degree-cap importance weight (deg/K for capped rows).
 Entries with value 0 are absent, so masked adjacency entries drop out by
-value.  The membership lookups run through ops/membership.py (the CUDA
-kernel on the card).
+value.  The membership lookups run through ops/membership.py and the
+window-table frame matmul through ops/window_gather.py (the CUDA kernels on
+the card).
 
-Not ported yet: the ELL branch of ``gather_neighbors``, the iid sampler,
-lane DropAdj, the SDDMM two-hop path, cn3/residual frames and the window
-table frame matmul.
+Not ported yet: the iid sampler, lane DropAdj, the SDDMM two-hop path and
+cn3/residual frames.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from typing import List, Optional
 
 import torch
 
+from ocn_tpu_torch.ops import window_gather as W
 from ocn_tpu_torch.ops.membership import membership_counts
 from ocn_tpu_torch.sparse.csr import Graph
 
@@ -58,7 +59,12 @@ def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
     contiguous window of k entries with importance weight deg/k, at a
     uniform offset drawn from ``gen`` (the first k entries when ``gen`` is
     None).  Adjacency values multiply the weights, so masked entries drop
-    out by value."""
+    out by value.
+
+    With an ELL table attached (``g.ell``, sparse/ell.py) and k <= ell_k the
+    windows come from the table, one row gather: their offsets were frozen
+    when the table was built, so ``gen`` is ignored, and k < ell_k takes the
+    leading lanes of the frozen window."""
     nodes = nodes.long()
     deg = g.deg[nodes]
     start = g.indptr[nodes]
@@ -67,6 +73,16 @@ def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
     capped = deg > k
     w_row = torch.where(capped, deg.float() / k, 1.0)
     valid = lane < torch.clamp(deg, max=k)[:, None]
+    if g.ell is not None and k <= g.ell_k:
+        pk = g.ell[nodes]
+        if k < g.ell_k:
+            pk = pk[:, :k]
+        ids = pk & ((1 << g.col_bits) - 1)
+        w = torch.where(valid, w_row[:, None] * (pk >> g.col_bits).float(), 0.0)
+        ids = torch.where(valid, ids, g.n_nodes).int()
+        pos0 = torch.clamp(start + g.ell_off[nodes], max=max(g.nnz - k, 0))
+        return NeighborFrame(ids=ids, w=w, n_nodes=g.n_nodes,
+                             pos=pos0[:, None] + lane)
     if gen is not None:
         u = torch.rand(b, generator=gen, device=nodes.device)
         woff = torch.where(capped, (u * (deg - k + 1).float()).int(), 0)
@@ -218,6 +234,16 @@ def entry_col_sum(val: torch.Tensor, perm, rank, out_idx) -> torch.Tensor:
     return entry_col_sum_multi(val[None], perm, rank, out_idx)[0]
 
 
+def _segment_dx(vals, dout, perm, seg, n_nodes: int) -> torch.Tensor:
+    """dx of a frame matmul: sum_p vals[p] * dout[p] per entry, summed into
+    its node by the sorted segment-sum over the FrameIndex (perm, seg)."""
+    _, b, k = vals.shape
+    coef = torch.einsum("pbk,pbh->bkh", vals, dout)
+    contrib = coef.reshape(b * k, -1)[perm]
+    return torch.zeros(n_nodes, dout.shape[-1], dtype=dout.dtype,
+                       device=dout.device).index_add_(0, seg, contrib)
+
+
 class _FrameMatmulMulti(torch.autograd.Function):
     """out[p, b] = sum_k vals[p, b, k] * x[ids[b, k]] over ONE row gather.
 
@@ -240,29 +266,80 @@ class _FrameMatmulMulti(torch.autograd.Function):
     def backward(ctx, dout):
         saved, vals, ids, perm, seg = ctx.saved_tensors
         n_nodes = ctx.n_nodes
-        b, k = ids.shape
         dx = dvals = None
         if ctx.needs_input_grad[0]:
             if perm.numel() == 0:
                 flat = torch.clamp(ids, max=n_nodes - 1).reshape(-1)
                 perm = torch.argsort(flat, stable=True)
                 seg = flat[perm].long()
-            coef = torch.einsum("pbk,pbh->bkh", vals, dout)
-            contrib = coef.reshape(b * k, -1)[perm]
-            dx = torch.zeros(n_nodes, dout.shape[-1], dtype=dout.dtype,
-                             device=dout.device).index_add_(0, seg, contrib)
+            dx = _segment_dx(vals, dout, perm, seg, n_nodes)
         if ctx.needs_input_grad[1]:
             rows = saved if ctx.save_rows else saved[torch.clamp(ids, max=n_nodes - 1)]
             dvals = torch.einsum("bkh,pbh->pbk", rows, dout)
         return dx, dvals, None, None, None, None, None
 
 
+class _FrameMatmulMultiWindow(torch.autograd.Function):
+    """_FrameMatmulMulti with the rows read as contiguous windows of the
+    hoisted table y = x.detach()[g.col]: the candidate ids of a chunk are
+    contiguous CSR windows (pos[b, k] == pos[b, 0] + k), so the (B, K, H)
+    row gather becomes B window copies (ops/window_gather.py, the CUDA
+    kernel on the card).  The windows are J = K + SLACK rows from an aligned
+    start; the value planes are shifted into that layout (pad_vals).
+
+    Gradient: out depends on x only through y, and y is built from the
+    detached x, so the whole cotangent flows to x here: dx is the sorted
+    segment-sum over (perm, seg) of _FrameMatmulMulti; nothing flows to y.
+    dvals (dead in cn5: the CN values reach no parameter) re-runs the window
+    gather only when asked for and takes lanes k + off.  No rows are kept for
+    the backward.  The contiguity of ``pos`` is checked on CPU tensors; on
+    the card the check would cost a host sync per chunk."""
+
+    @staticmethod
+    def forward(ctx, x, y, pos, vals, perm, seg, n_nodes):
+        k = pos.shape[-1]
+        if pos.device.type == "cpu":
+            lane = torch.arange(k, dtype=pos.dtype)
+            if not torch.equal(pos, pos[:, :1] + lane):
+                raise ValueError("window frame matmul needs contiguous windows: "
+                                 "pos[b, k] == pos[b, 0] + k")
+        rows, off = W.window_rows(y, pos[:, 0], k)  # (B, J, H)
+        out = torch.einsum("pbj,bjh->pbh", W.pad_vals(vals, off, k + W.SLACK), rows)
+        ctx.n_nodes = n_nodes
+        ctx.save_for_backward(y, pos, vals, perm, seg)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, pos, vals, perm, seg = ctx.saved_tensors
+        p, b, k = vals.shape
+        dx = dvals = None
+        if ctx.needs_input_grad[0]:
+            dx = _segment_dx(vals, dout, perm, seg, ctx.n_nodes)
+        if ctx.needs_input_grad[3]:
+            rows, off = W.window_rows(y, pos[:, 0], k)
+            dvals_pad = torch.einsum("bjh,pbh->pbj", rows, dout)
+            klane = (torch.arange(k, device=off.device)[None, :]
+                     + off.long()[:, None])
+            dvals = torch.gather(dvals_pad, 2, klane[None].expand(p, b, k))
+        return dx, None, None, dvals, None, None, None
+
+
 def matmul_shared(frames: List[CNFrame], x: torch.Tensor,
                   fidx: Optional[FrameIndex] = None,
-                  save_rows: bool = True) -> List[torch.Tensor]:
-    """cn @ x for several frames sharing one id array, one gather in all."""
+                  save_rows: bool = True, y: Optional[torch.Tensor] = None,
+                  pos: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """cn @ x for several frames sharing one id array, one gather in all.
+
+    ``y``/``pos``: the window-table path, y = x.detach()[g.col] built once
+    per step and pos the frames' CSR window positions (needs ``fidx``; see
+    _FrameMatmulMultiWindow)."""
     ids = frames[0].ids
     vals = torch.stack([f.val for f in frames])
+    if y is not None and pos is not None and fidx is not None:
+        out = _FrameMatmulMultiWindow.apply(x, y, pos, vals, fidx.perm,
+                                            fidx.seg, frames[0].n_nodes)
+        return list(out.unbind(0))
     empty = ids.new_zeros(0, dtype=torch.long)
     perm, seg = (fidx.perm, fidx.seg) if fidx is not None else (empty, empty)
     out = _FrameMatmulMulti.apply(x, vals, ids, perm, seg, frames[0].n_nodes,
@@ -281,9 +358,11 @@ def cn_frames(
     k2_dst: Optional[int] = None,
     cn2_counts: bool = False,
     exact_two_hop: bool = False,
+    with_src: bool = False,
 ):
     """cn1 and cn2 frames for target edges ``tar_ei`` (2, B), A^2 "gather"
-    mode.
+    mode; with ``with_src`` also the candidate frame N(i) itself (its CSR
+    window positions feed the window-table frame matmul).
 
     cn1[b, k] != 0 iff candidate k is a 1-hop common neighbor of (i, j);
     cn2[b, k] != 0 iff candidate k is a neighbor of i with A^2[j, k] > 0,
@@ -317,4 +396,4 @@ def cn_frames(
     base = counts if cn2_counts else (counts > 0).float()
     cn2_val = torch.where(src.w != 0, src.w * base, 0.0)
     cn2 = CNFrame(ids=src.ids, val=cn2_val, n_nodes=g.n_nodes)
-    return cn1, cn2
+    return (cn1, cn2, src) if with_src else (cn1, cn2)

@@ -36,6 +36,11 @@ class Graph:
              values are small non-negative integers, so a neighbor-window
              gather reads one array; dropped by any value mutation except
              masking, which clears the value bits in place.
+    ell, ell_off, ell_k : ELL window table (sparse/ell.py): ell[r] holds the
+             packed entries of the CSR window [indptr[r]+ell_off[r], +ell_k),
+             the per-node neighbor sample frozen for a refresh interval, so a
+             batch's neighbor gather is one (B,) row gather.  Any value edit
+             drops it (the table holds copies of the values).
 
     nnz counts GATHER_PAD zero-valued tail entries.  Gather-only graphs (the
     A^2 table) carry indptr/deg/packed and leave col/row/val/tpos None.
@@ -50,6 +55,14 @@ class Graph:
     tpos: Optional[torch.Tensor] = None
     packed: Optional[torch.Tensor] = None
     col_bits: int = 0
+    ell: Optional[torch.Tensor] = None      # (n_nodes, ell_k) int32 packed
+    ell_off: Optional[torch.Tensor] = None  # (n_nodes,) int32 window offsets
+    ell_k: int = 0
+
+    def with_ell(self, ell: torch.Tensor, ell_off: torch.Tensor) -> "Graph":
+        """Attach an ELL window table (requires the packed col|val layout)."""
+        return dataclasses.replace(self, ell=ell, ell_off=ell_off,
+                                   ell_k=int(ell.shape[1]))
 
     @property
     def nnz(self) -> int:
@@ -67,23 +80,29 @@ class Graph:
         return dataclasses.replace(
             self, indptr=mv(self.indptr), col=mv(self.col), row=mv(self.row),
             val=mv(self.val), deg=mv(self.deg), tpos=mv(self.tpos),
-            packed=mv(self.packed))
+            packed=mv(self.packed), ell=mv(self.ell), ell_off=mv(self.ell_off))
 
     def with_values(self, val: torch.Tensor) -> "Graph":
-        # value mutation invalidates the packed col|val array
-        return dataclasses.replace(self, val=val, packed=None, col_bits=0)
+        # value mutation invalidates the packed col|val array and any ELL
+        # table built from it
+        return dataclasses.replace(self, val=val, packed=None, col_bits=0,
+                                   ell=None, ell_off=None, ell_k=0)
 
     def mask_edges(self, positions: torch.Tensor) -> "Graph":
         """Zero ``val`` at the given nnz positions (maskinput: the batch's
         target links, ``edge2pos[idx].ravel()``).  The packed array keeps
         its column bits and loses its value bits at the same positions, so
-        per-row id order is unchanged."""
+        per-row id order is unchanged.  An attached ELL table is dropped:
+        it holds copies of the masked entries, and the trainer re-attaches a
+        masked table (sparse/ell.py apply_ell_mask)."""
         positions = positions.long()
         out = dataclasses.replace(self, val=self.val.index_fill(0, positions, 0.0))
         if self.packed is not None:
             cleared = self.packed[positions] & ((1 << self.col_bits) - 1)
             out = dataclasses.replace(
                 out, packed=self.packed.index_copy(0, positions, cleared))
+        if self.ell is not None:
+            out = dataclasses.replace(out, ell=None, ell_off=None, ell_k=0)
         return out
 
     def drop_edges(self, p: float, gen: Optional[torch.Generator] = None,

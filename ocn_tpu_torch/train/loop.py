@@ -12,11 +12,26 @@ One training step:
 * the loss over all chunks is backpropagated once and a two-group Adam
   (gnnlr for the encoder, prelr for the predictor) takes a step.
 
-Randomness (dropout, DropAdj, window offsets of capped rows) comes from one
-``torch.Generator`` per epoch, seeded from the host NumPy generator that
-also draws the batch permutation and negatives, exactly as ocn_tpu draws its
-PRNG key.  Not ported yet: ELL tables, the dual-K split, grouped or hoisted
-frames, the window table, bfloat16, meshes (Config.require_supported).
+Three layout options of the JAX package are ported:
+
+* ELL tables (``ell_tables``): each epoch freezes the window offsets of the
+  capped rows in (N, K) tables of g and A^2 (sparse/ell.py), rebuilt on the
+  device; neighbor gathers become row gathers of the tables, and maskinput
+  clears the batch edges in a copy of g's table;
+* the dual-K split (``k_small``): each batch is sorted by source degree so
+  the leading chunks, the low-degree majority, run at frame width k_small
+  and the rest at pad_deg; EMA order becomes [pos_s, neg_s, pos_b, neg_b]
+  and inverse permutations restore the batch order for the loss;
+* the window table (``window_table``): y = h.detach()[g.col] is built once
+  per step and the frame matmuls read contiguous windows of it through the
+  window-gather kernel (ops/window_gather.py).
+
+Randomness (dropout, DropAdj, window offsets of capped rows off the tables)
+comes from one ``torch.Generator`` per epoch, seeded from the host NumPy
+generator that also draws the batch permutation and negatives, exactly as
+ocn_tpu draws its PRNG key; the ELL offsets come from a NumPy generator
+derived from the epoch number.  Not ported yet: grouped or hoisted frames,
+bfloat16, meshes (Config.require_supported).
 """
 from __future__ import annotations
 
@@ -34,6 +49,7 @@ from ocn_tpu_torch.nn.encoder import GCNEncoder
 from ocn_tpu_torch.nn.predictors import build_predictor
 from ocn_tpu_torch.ops.frame import cn_frames
 from ocn_tpu_torch.sparse import build as B
+from ocn_tpu_torch.sparse import ell as ELL
 from ocn_tpu_torch.sparse.csr import Graph, graph_from_numpy
 from ocn_tpu_torch.train import losses as L
 from ocn_tpu_torch.train import metrics as M
@@ -110,6 +126,15 @@ class Trainer:
             self.edge2pos = np.asarray(B.edge_to_nnz_positions(
                 g_host.indptr.numpy(), g_host.col.numpy(), self.train_edges))
 
+        self._deg_np = g_host.deg.numpy()
+        self._indptr_np = g_host.indptr.numpy()
+        self._split = self._split_plan()
+        # ELL window tables: built by the first train_epoch (or an explicit
+        # _refresh_ell) and rebuilt every cfg.ell_refresh epochs
+        self._ell = None
+        self._use_ell = bool(cfg.ell_tables and self.g.packed is not None
+                             and self.adj2.packed is not None)
+
     def _build_adj2(self, g: Graph) -> Graph:
         ip = g.indptr.numpy()
         col = g.col.numpy()[: int(ip[-1])]
@@ -118,6 +143,49 @@ class Trainer:
         # packed alone (4 bytes per entry)
         return graph_from_numpy(ip2, col2, g.n_nodes, val2,
                                 gather_only=True).to(self.device)
+
+    def _refresh_ell(self, rng: np.random.Generator) -> None:
+        """Re-draw the frozen window offsets on the host and rebuild both
+        ELL tables (g at pad_deg, A^2 at pad_deg2) on the device."""
+        cfg = self.cfg
+        off1 = ELL.draw_offsets(self._deg_np, cfg.pad_deg, rng)
+        off2 = ELL.draw_offsets(self.adj2.deg.cpu().numpy(), cfg.pad_deg2, rng)
+        o1 = torch.as_tensor(off1, device=self.device)
+        o2 = torch.as_tensor(off2, device=self.device)
+        self._ell = dict(
+            tbl1=ELL.build_ell(self.g.packed, self.g.indptr, o1, cfg.pad_deg),
+            off1=o1, off1_np=off1,
+            tbl2=ELL.build_ell(self.adj2.packed, self.adj2.indptr, o2,
+                               cfg.pad_deg2),
+            off2=o2)
+
+    def _split_plan(self) -> Optional[Tuple[int, int]]:
+        """Chunk counts (n_small_pos, n_small_neg) of the dual-K split, or
+        None when it is off.  Sorting each batch by source degree puts the
+        low-degree majority in the leading chunks, so a fixed boundary at
+        the degree distribution's quantile routes almost exactly the
+        deg <= k_small edges to the small body; edges that spill into it get
+        the usual deg/k reweighted cap."""
+        cfg = self.cfg
+        if cfg.k_small <= 0 or cfg.k_small >= cfg.pad_deg or cfg.hoist_frames:
+            return None
+        nchunk = cfg.batch_size // self._chunk()
+        deg = self._deg_np
+        if cfg.small_frac >= 0:
+            fp = cfg.small_frac
+        else:
+            fp = float(np.mean(deg[self.train_edges[0]] <= cfg.k_small))
+        if cfg.small_frac_neg >= 0:
+            fneg = cfg.small_frac_neg
+        elif cfg.neg_mode == "randint_target":
+            fneg = fp  # negatives keep the positive sources
+        else:
+            fneg = float(np.mean(deg <= cfg.k_small))
+        nsp = min(nchunk, int(fp * nchunk))
+        nsn = min(nchunk, int(fneg * nchunk))
+        if nsp + nsn == 0:
+            return None
+        return nsp, nsn
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: int) -> TrainState:
@@ -150,22 +218,28 @@ class Trainer:
         return _largest_divisor_leq(cfg.batch_size, target)
 
     def _score_chunk(self, state: TrainState, h, g: Graph, edges, valid, gen,
-                     training: bool, adj2: Graph, corr=None) -> torch.Tensor:
+                     training: bool, adj2: Graph, corr=None, y=None,
+                     k: Optional[int] = None) -> torch.Tensor:
         """Score one (2, C) chunk; returns (C,) scores.  ``corr``: (C,)
         maskinput self-path correction (1 for positive train edges whose
         (i, j) was just masked out).  In eval, ``gen`` samples capped rows
-        when cfg.eval_sampling (else the first-k window)."""
+        when cfg.eval_sampling (else the first-k window).  ``y``: the
+        window table h.detach()[g.col] (the frame matmul then reads the
+        candidate frame's CSR windows of it).  ``k``: candidate-frame width
+        (the dual-K small body), default pad_deg."""
         cfg = self.cfg
         frame_gen = gen if (training or cfg.eval_sampling) else None
-        cn1, cn2 = cn_frames(
-            g, edges, k=cfg.pad_deg, k2=cfg.pad_deg2, gen=frame_gen, adj2=adj2,
-            self_corr=corr, k2_dst=cfg.pad_deg2_dst, cn2_counts=cfg.cn2_counts,
-            exact_two_hop=cfg.exact_two_hop)
+        cn1, cn2, src = cn_frames(
+            g, edges, k=k or cfg.pad_deg, k2=cfg.pad_deg2, gen=frame_gen,
+            adj2=adj2, self_corr=corr, k2_dst=cfg.pad_deg2_dst,
+            cn2_counts=cfg.cn2_counts, exact_two_hop=cfg.exact_two_hop,
+            with_src=True)
         # padded/invalid edges must not pollute batch column sums / EMA
         cn1 = cn1.with_values(cn1.val * valid[:, None])
         cn2 = cn2.with_values(cn2.val * valid[:, None])
         out = state.predictor(h, g.n_nodes, cn1, cn2, edges,
-                              gen if training else None)
+                              gen if training else None, y=y,
+                              pos=src.pos if y is not None else None)
         return out.reshape(-1)
 
     def _loss(self, pos_out, neg_out):
@@ -175,38 +249,90 @@ class Trainer:
             margin=cfg.lossmargin)
 
     # ------------------------------------------------------------ train step
+    def _masked_graph(self, mask_positions) -> Graph:
+        """The train graph of one step.  ``mask_positions``: None, (P,) CSR
+        positions, or the dict of prepare_batch with the ELL tables: g then
+        carries its table with the batch edges cleared in a copy of it."""
+        if mask_positions is None:
+            return self.g
+        if isinstance(mask_positions, dict):
+            mp = mask_positions
+            g = self.g.mask_edges(mp["csr"]) if mp["csr"] is not None else self.g
+            tbl = mp["ell1"]
+            if "ell_flat" in mp:
+                tbl = ELL.apply_ell_mask(tbl, mp["ell_flat"], mp["ell_cleared"])
+            return g.with_ell(tbl, mp["off1"])
+        return self.g.mask_edges(mask_positions)
+
+    def _local_adj2(self, mask_positions) -> Graph:
+        """A^2 of one step: no maskinput edit (cn_frames' self-path
+        correction handles it), but its gathers ride the ELL table when the
+        tables are on."""
+        if isinstance(mask_positions, dict):
+            return self.adj2.with_ell(mask_positions["ell2"],
+                                      mask_positions["off2"])
+        return self.adj2
+
     def step_loss(self, state: TrainState, pos: torch.Tensor, neg: torch.Tensor,
-                  mask_positions: Optional[torch.Tensor],
-                  gen: torch.Generator) -> torch.Tensor:
+                  mask_positions, gen: torch.Generator,
+                  inv_p: Optional[torch.Tensor] = None,
+                  inv_n: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The training loss of one batch, with its autograd graph: the
         encoder over the masked graph, then every positive chunk and every
-        negative chunk in order.  Steps the predictor's EMA buffers."""
+        negative chunk in order (with the dual-K split: the small body's
+        positive and negative chunks, then the big body's).  Steps the
+        predictor's EMA buffers."""
         cfg = self.cfg
         c = self._chunk()
         b = pos.shape[1]
         nchunk = b // c
-        g = self.g.mask_edges(mask_positions) if mask_positions is not None else self.g
+        split = self._split
+        if split is not None and (inv_p is None or inv_n is None):
+            raise ValueError("k_small > 0 needs degree-sorted batches; build "
+                             "the step inputs with Trainer.prepare_batch")
+        g = self._masked_graph(mask_positions)
+        adj2 = self._local_adj2(mask_positions)
         state.encoder.train()
         state.predictor.train()
         h = state.encoder(self.x, g, gen)
-        edges = torch.cat([pos, neg], dim=1)
+        # the window table: one CSR-order row gather per step; the gradient
+        # to h flows through the frame matmuls' backward, not through y
+        y = h.detach()[g.col] if cfg.window_table else None
         valid = torch.ones(c, device=self.device)
         corr = valid if cfg.maskinput else None
-        outs = [
-            self._score_chunk(
-                state, h, g, edges[:, i * c:(i + 1) * c], valid, gen, True,
-                self.adj2, corr=corr if i < nchunk else None)
-            for i in range(2 * nchunk)
-        ]
-        out = torch.cat(outs)
-        return self._loss(out[:b], out[b:])
+
+        def score(edges, n_pos, k=None):
+            # chunks of (2, n*c) edges, the first n_pos of them positive
+            return [
+                self._score_chunk(
+                    state, h, g, edges[:, i * c:(i + 1) * c], valid, gen, True,
+                    adj2, corr=corr if i < n_pos else None, y=y, k=k)
+                for i in range(edges.shape[1] // c)
+            ]
+
+        if split is None:
+            out = torch.cat(score(torch.cat([pos, neg], dim=1), nchunk))
+            return self._loss(out[:b], out[b:])
+        nsp, nsn = split
+        small = score(torch.cat([pos[:, :nsp * c], neg[:, :nsn * c]], dim=1),
+                      nsp, k=cfg.k_small)
+        big = score(torch.cat([pos[:, nsp * c:], neg[:, nsn * c:]], dim=1),
+                    nchunk - nsp)
+        pos_sorted = torch.cat(small[:nsp] + big[:nchunk - nsp])
+        neg_sorted = torch.cat(small[nsp:] + big[nchunk - nsp:])
+        # the original batch order, so per-index pos/neg pairing survives
+        return self._loss(pos_sorted[inv_p], neg_sorted[inv_n])
 
     def train_step(self, state: TrainState, pos: torch.Tensor, neg: torch.Tensor,
-                   mask_positions: Optional[torch.Tensor],
-                   gen: torch.Generator) -> Tuple[TrainState, torch.Tensor]:
-        """One optimizer step on a (2, batch_size) positive/negative batch
-        from ``prepare_batch``; returns (state, detached loss)."""
-        loss = self.step_loss(state, pos, neg, mask_positions, gen)
+                   mask_positions, gen: torch.Generator,
+                   inv_p: Optional[torch.Tensor] = None,
+                   inv_n: Optional[torch.Tensor] = None
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        """One optimizer step on the inputs of ``prepare_batch`` (positive
+        and negative (2, batch_size) edges, mask positions, and with the
+        dual-K split the inverse permutations); returns (state, detached
+        loss)."""
+        loss = self.step_loss(state, pos, neg, mask_positions, gen, inv_p, inv_n)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         state.opt.step()
@@ -217,16 +343,48 @@ class Trainer:
                       idx: Optional[np.ndarray] = None):
         """Host-side step inputs: ``pos_b``/``neg_b`` (2, B) int edge arrays,
         ``idx`` (B,) indices into the train-edge list (for maskinput).
-        Returns (pos, neg, mask_positions) as device tensors (mask_positions
-        None without maskinput)."""
-        mp = None
+
+        With the dual-K split each side is stable-sorted by source degree
+        and the inverse permutations restore the original order of the
+        scores.  With ELL tables the mask positions become a dict: the CSR
+        positions, the current tables, and the batch edges' positions inside
+        the frozen windows with the cleared entries to write there.
+        Returns (pos, neg, mask_positions, inv_p, inv_n) as device tensors
+        (None where they do not apply)."""
+        dev = self.device
+        inv_p = inv_n = None
+        if self._split is not None:
+            ar = np.arange(pos_b.shape[1])
+            sp = np.argsort(self._deg_np[pos_b[0]], kind="stable")
+            sn = np.argsort(self._deg_np[neg_b[0]], kind="stable")
+            pos_b, neg_b = pos_b[:, sp], neg_b[:, sn]
+            if idx is not None:
+                idx = idx[sp]
+            inv = np.empty_like(sp)
+            inv[sp] = ar
+            inv_p = torch.as_tensor(inv, dtype=torch.int64, device=dev)
+            inv = np.empty_like(sn)
+            inv[sn] = ar
+            inv_n = torch.as_tensor(inv, dtype=torch.int64, device=dev)
+        mp = mp_np = None
         if self.edge2pos is not None and idx is not None:
             mp_np = np.maximum(self.edge2pos[idx].reshape(-1), 0)
-            mp = torch.as_tensor(mp_np, dtype=torch.int64, device=self.device)
+            mp = torch.as_tensor(mp_np, dtype=torch.int64, device=dev)
+        if self._ell is not None:
+            ell = self._ell
+            aux = {"csr": mp, "ell1": ell["tbl1"], "off1": ell["off1"],
+                   "ell2": ell["tbl2"], "off2": ell["off2"]}
+            if mp_np is not None:
+                flat, cleared = ELL.mask_ell_flat_positions(
+                    pos_b, mp_np, self._indptr_np, ell["off1_np"],
+                    self.cfg.pad_deg)
+                aux["ell_flat"] = torch.as_tensor(flat, device=dev)
+                aux["ell_cleared"] = torch.as_tensor(cleared, device=dev)
+            mp = aux
         return (
-            torch.as_tensor(np.asarray(pos_b), dtype=torch.int64, device=self.device),
-            torch.as_tensor(np.asarray(neg_b), dtype=torch.int64, device=self.device),
-            mp,
+            torch.as_tensor(np.asarray(pos_b), dtype=torch.int64, device=dev),
+            torch.as_tensor(np.asarray(neg_b), dtype=torch.int64, device=dev),
+            mp, inv_p, inv_n,
         )
 
     def train_epoch(self, state: TrainState, rng: np.random.Generator,
@@ -235,6 +393,12 @@ class Trainer:
         tail is dropped, as the reference's PermIterator does); returns the
         mean batch loss."""
         cfg = self.cfg
+        if self._use_ell and (
+                self._ell is None or (epoch - 1) % max(cfg.ell_refresh, 1) == 0):
+            # a generator derived from the epoch, so the main stream stays
+            # the same as with ell_tables off
+            self._refresh_ell(np.random.default_rng(
+                (epoch * 0x9E3779B1 + 0x85EBCA77) & 0xFFFFFFFF))
         pos = self.train_edges
         e = pos.shape[1]
         perm = rng.permutation(e)
@@ -256,12 +420,14 @@ class Trainer:
         losses = []
         for start in range(0, e - bs + 1, bs):
             idx = perm[start:start + bs]
-            if cfg.sort_batch:
+            if cfg.sort_batch and self._split is None:
                 # cluster the batch's gathers by source id; pos/neg share the
-                # permutation so per-index loss pairing survives
+                # permutation so per-index loss pairing survives (the dual-K
+                # degree sort supersedes it)
                 idx = idx[np.argsort(pos[0, idx], kind="stable")]
-            pe, ne, mp = self.prepare_batch(pos[:, idx], neg[:, idx], idx)
-            state, loss = self.train_step(state, pe, ne, mp, gen)
+            pe, ne, mp, inv_p, inv_n = self.prepare_batch(
+                pos[:, idx], neg[:, idx], idx)
+            state, loss = self.train_step(state, pe, ne, mp, gen, inv_p, inv_n)
             losses.append(loss.item())
         return state, float(np.mean(losses)) if losses else 0.0
 
@@ -275,13 +441,19 @@ class Trainer:
 
     @torch.no_grad()
     def _score_batches(self, state: TrainState, h, g: Graph, edges: np.ndarray,
-                       adj2: Graph) -> np.ndarray:
-        """Score (n, 2) edges in fixed (2, testbs) batches; the ragged tail
-        is padded and value-masked so batch column sums see only real edges.
-        Capped rows are sampled from a generator seeded by (seed, batch
-        start), so eval is deterministic across calls."""
+                       adj2: Graph, k: Optional[int] = None,
+                       fold0: int = 0) -> np.ndarray:
+        """Score (n, 2) edges in fixed (2, testbs) batches at frame width
+        ``k`` (None = pad_deg); the ragged tail is padded and value-masked
+        so batch column sums see only real edges.  Capped rows off the ELL
+        tables are sampled from a generator seeded by (seed, fold0, batch
+        start), so eval is deterministic across calls; ``fold0`` gives each
+        dual-K eval body its own stream."""
         state.predictor.eval()
         bs = self.cfg.testbs
+        # built from the graph being scored (full_g for the test split
+        # under use_valedges_as_input)
+        y = h[g.col] if self.cfg.window_table else None
         out = []
         n = edges.shape[0]
         for start in range(0, n, bs):
@@ -293,30 +465,68 @@ class Trainer:
             valid = torch.zeros(bs, device=self.device)
             valid[:c] = 1.0
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.cfg.seed * 0x9E3779B1 + start)
+            gen.manual_seed(self.cfg.seed * 0x9E3779B1 + fold0 * 0x85EBCA77
+                            + start)
             s = self._score_chunk(
                 state, h, g, torch.as_tensor(chunk, dtype=torch.int64,
                                              device=self.device),
-                valid, gen, False, adj2)
+                valid, gen, False, adj2, y=y, k=k)
             out.append(s[:c].cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
+
+    def _score_split(self, state: TrainState, h, g: Graph, edges: np.ndarray,
+                     adj2: Graph) -> np.ndarray:
+        """Scores of one eval split.  With the dual-K split at eval the
+        split is sorted by source degree once, full testbs batches of
+        sources with degree <= k_small (in the graph being scored) run at
+        width k_small, the rest at pad_deg, and the scores are put back in
+        order."""
+        cfg = self.cfg
+        n = edges.shape[0]
+        if not (cfg.dual_k_eval and 0 < cfg.k_small < cfg.pad_deg
+                and n > cfg.testbs):
+            return self._score_batches(state, h, g, edges, adj2)
+        edges = np.asarray(edges)
+        # degrees of the graph being scored: on full_g a source may cross
+        # k_small once the valid edges are added, and must then go big
+        deg = g.deg.cpu().numpy()[edges[:, 0]]
+        sp = np.argsort(deg, kind="stable")
+        split_at = (int(np.sum(deg <= cfg.k_small)) // cfg.testbs) * cfg.testbs
+        se = edges[sp]
+        out = np.concatenate([
+            self._score_batches(state, h, g, se[:split_at], adj2,
+                                k=cfg.k_small, fold0=1),
+            self._score_batches(state, h, g, se[split_at:], adj2, fold0=2),
+        ])
+        inv = np.empty(n, np.int64)
+        inv[sp] = np.arange(n)
+        return out[inv]
+
+    def _eval_graphs(self) -> Tuple[Graph, Graph]:
+        """(g, adj2) for eval scoring, with the current ELL tables attached
+        when ``ell_eval`` (rows with degree <= pad_deg score the same;
+        capped rows use the frozen window)."""
+        if self.cfg.ell_eval and self._use_ell and self._ell is not None:
+            return (self.g.with_ell(self._ell["tbl1"], self._ell["off1"]),
+                    self.adj2.with_ell(self._ell["tbl2"], self._ell["off2"]))
+        return self.g, self.adj2
 
     def evaluate(self, state: TrainState) -> Dict[str, Tuple[float, float, float]]:
         """Score train / valid / test positives against the valid / test
         negatives; Hits@K for K in {20, 50, 100} as (train, valid, test).
         ``use_valedges_as_input`` re-encodes with the train+valid graph for
-        the test split."""
+        the test split, which has no ELL table."""
         se = self.ds.split_edge
         h = self.encode(state)
-        g, a2 = self.g, self.adj2
-        pos_train = self._score_batches(state, h, g, se["train"]["edge"], a2)
-        pos_valid = self._score_batches(state, h, g, se["valid"]["edge"], a2)
-        neg_valid = self._score_batches(state, h, g, se["valid"]["edge_neg"], a2)
+        g, a2 = self._eval_graphs()
+        pos_train = self._score_split(state, h, g, se["train"]["edge"], a2)
+        pos_valid = self._score_split(state, h, g, se["valid"]["edge"], a2)
+        neg_valid = self._score_split(state, h, g, se["valid"]["edge_neg"], a2)
         if self.cfg.use_valedges_as_input:
             h = self.encode(state, full=True)
             g, a2 = self.full_g, self.full_adj2
-        pos_test = self._score_batches(state, h, g, se["test"]["edge"], a2)
-        neg_test = self._score_batches(state, h, g, se["test"]["edge_neg"], a2)
+        pos_test = self._score_split(state, h, g, se["test"]["edge"], a2)
+        neg_test = self._score_split(state, h, g, se["test"]["edge_neg"], a2)
         return {
             f"Hits@{k}": (
                 M.hits_at_k(pos_train, neg_valid, k),

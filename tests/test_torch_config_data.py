@@ -44,22 +44,31 @@ def test_config_defaults_and_fields_match():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ell_tables", True), ("k_small", 16), ("frame_group", 8),
-    ("hoist_frames", True), ("window_table", True), ("dtype", "bfloat16"),
+    ("frame_group", 8), ("hoist_frames", True), ("dtype", "bfloat16"),
     ("cndeg", 32), ("two_hop_mode", "sddmm"), ("encoder_stack", "ho"),
     ("predictor", "cn7"), ("dp_devices", 4), ("graph_sharding", "node"),
 ])
 def test_unported_fields_raise(field, value):
-    cfg = tcfg.Config(**{"ell_tables": False, field: value})
+    cfg = tcfg.Config(**{field: value})
     with pytest.raises(NotImplementedError, match=f"Config.{field}"):
         tcfg.require_supported(cfg)
 
 
+@pytest.mark.parametrize("field,value", [
+    ("ell_tables", True), ("k_small", 16), ("window_table", True),
+])
+def test_ported_fields_are_accepted(field, value):
+    tcfg.require_supported(tcfg.Config(**{field: value}))
+
+
 def test_collab_preset_needs_the_knobs_off():
-    # presets("collab", "cn5") carries k_small=16 and the default ell_tables
-    with pytest.raises(NotImplementedError):
-        tcfg.require_supported(tcfg.presets("collab", "cn5"))
-    tcfg.require_supported(tcfg.presets("collab", "cn5", ell_tables=False, k_small=0))
+    # presets("collab", "cn5") (ELL tables, k_small=16) runs as it is, with
+    # the window table too; the knobs of the next slice still raise
+    tcfg.require_supported(tcfg.presets("collab", "cn5"))
+    tcfg.require_supported(tcfg.presets("collab", "cn5", window_table=True))
+    for field, value in (("frame_group", 8), ("dtype", "bfloat16")):
+        with pytest.raises(NotImplementedError, match=f"Config.{field}"):
+            tcfg.require_supported(tcfg.presets("collab", "cn5", **{field: value}))
 
 
 def _assert_dataset_equal(a, b):
@@ -233,7 +242,7 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default-device run is valid here")
     ds = tld.synthetic_dataset("Cora", seed=0, scale=0.05)
-    cfg = tcfg.Config(ell_tables=False)
+    cfg = tcfg.Config()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg, ds)
     Trainer(cfg, ds, device="cpu")

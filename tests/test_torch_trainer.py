@@ -8,16 +8,21 @@ Dropout is 0 and every degree is under the frame caps (asserted), so no
 random stream is read.  Tolerance rtol=1e-4: Adam and the segment sums
 accumulate in a different order on the two sides, and the differences
 compound over the steps."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from ocn_tpu.config import Config as JConfig
+from ocn_tpu.data.loaders import loaddataset as jloaddataset
 from ocn_tpu.data.loaders import synthetic_dataset as jsynthetic
 from ocn_tpu.train.loop import Trainer as JTrainer
 from ocn_tpu_torch import cli as tcli
 from ocn_tpu_torch.config import Config as TConfig
+from ocn_tpu_torch.config import presets as tpresets
+from ocn_tpu_torch.data.loaders import loaddataset as tloaddataset
 from ocn_tpu_torch.data.loaders import synthetic_dataset as tsynthetic
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.train.loop import Trainer as TTrainer
@@ -65,7 +70,9 @@ def test_trajectory_epoch_and_hits(pair):
         pe, ne, mp, ip, inn = jt.prepare_batch(pos_b, neg_b, idx)
         js, loss = jt.train_step(js, pe, ne, mp, jax.random.PRNGKey(i), ip, inn)
         jl.append(float(loss))
-        ts, loss = tt.train_step(ts, *tt.prepare_batch(pos_b, neg_b, idx), gen)
+        pe, ne, mp, ip, inn = tt.prepare_batch(pos_b, neg_b, idx)
+        assert ip is None and inn is None  # k_small=0: no split
+        ts, loss = tt.train_step(ts, pe, ne, mp, gen, ip, inn)
         tl.append(float(loss))
     np.testing.assert_allclose(tl, jl, rtol=RTOL)
     assert len(set(jl)) == 5  # the loss moves: the steps really train
@@ -97,6 +104,129 @@ def test_trajectory_epoch_and_hits(pair):
                                edges, jt.adj2)
     tscore = tt._score_batches(ts, tt.encode(ts), tt.g, edges, tt.adj2)
     np.testing.assert_allclose(tscore, jscore, rtol=RTOL, atol=1e-5)
+
+
+# the window-table path: ELL tables (refreshed per epoch), the dual-K split
+# and window_table together; pad_deg2 <= pad_deg, so every neighbor gather
+# rides a table, and capped rows are in (their windows are frozen in the
+# tables, with offsets drawn by NumPy on both sides)
+KW_WINDOW = dict(KW, ell_tables=True, k_small=4, window_table=True,
+                 pad_deg=16, pad_deg2=8, linkbatchsize=16)
+
+
+def test_window_ell_dual_k_trajectory():
+    jds = jsynthetic("Cora", seed=0, scale=0.1).reorder_bfs()
+    tds = tsynthetic("Cora", seed=0, scale=0.1).reorder_bfs()
+    jt = JTrainer(JConfig(**KW_WINDOW), jds)
+    tt = TTrainer(TConfig(**KW_WINDOW), tds, device="cpu")
+    assert tt._use_ell and jt._use_ell
+    assert tt._split == jt._split and min(tt._split) > 0
+    assert int(tt.g.deg.max()) > KW_WINDOW["pad_deg"]
+    assert int(tt.adj2.deg.max()) > KW_WINDOW["pad_deg2"]
+    js = jt.init_state(0)
+    ts = tt.init_state(0)
+    params_from_jax(*jax.device_get((js.params, js.ema)), ts.encoder, ts.predictor)
+    jt._refresh_ell(np.random.default_rng(7))
+    tt._refresh_ell(np.random.default_rng(7))
+
+    e = tt.train_edges.shape[1]
+    rng = np.random.default_rng(5)
+    perm = rng.permutation(e)
+    neg = B.negative_sampling(tt.ds.edge_index, tt.ds.n_nodes, e, rng)
+    bs = KW_WINDOW["batch_size"]
+    gen = torch.Generator().manual_seed(0)
+    jl, tl = [], []
+    for i in range(5):
+        idx = perm[i * bs:(i + 1) * bs]
+        pos_b, neg_b = tt.train_edges[:, idx], neg[:, idx]
+        pe, ne, mp, ip, inn = jt.prepare_batch(pos_b, neg_b, idx)
+        js, loss = jt.train_step(js, pe, ne, mp, jax.random.PRNGKey(i), ip, inn)
+        jl.append(float(loss))
+        pe, ne, mp, ip, inn = tt.prepare_batch(pos_b, neg_b, idx)
+        assert isinstance(mp, dict) and "ell_flat" in mp and ip.shape == (bs,)
+        ts, loss = tt.train_step(ts, pe, ne, mp, gen, ip, inn)
+        tl.append(float(loss))
+    np.testing.assert_allclose(tl, jl, rtol=RTOL)
+    assert len(set(jl)) == 5
+
+    # one epoch: the tables are rebuilt from the epoch-derived generator
+    rj, rt = np.random.default_rng(9), np.random.default_rng(9)
+    js, jloss = jt.train_epoch(js, rj, 1)
+    ts, tloss = tt.train_epoch(ts, rt, 1)
+    np.testing.assert_allclose(tloss, jloss, rtol=RTOL)
+    np.testing.assert_array_equal(tt._ell["tbl1"].numpy(),
+                                  np.asarray(jt._ell["tbl1"]))
+
+    # the EMA advanced once per chunk, in the order [pos_s, neg_s, pos_b,
+    # neg_b] (the inner product is a running mean, so the order shows in it)
+    ema = jax.device_get(js.ema)
+    chunks = 2 * bs // KW_WINDOW["linkbatchsize"]
+    assert int(ts.predictor.n) == int(ema["n"]) == chunks * (5 + e // bs)
+    np.testing.assert_allclose(float(ts.predictor.innerprod),
+                               float(ema["innerprod"]), rtol=RTOL)
+
+    # eval through the tables, dual-K on the splits larger than testbs
+    assert e > KW_WINDOW["testbs"]
+    want = jt.evaluate(js)
+    got = tt.evaluate(ts)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=RTOL, err_msg=key)
+
+
+@pytest.mark.filterwarnings("ignore:dataset 'Cora' unavailable offline")
+def test_window_dual_k_eval_on_the_full_graph():
+    """use_valedges_as_input: the test split is scored on the train+valid
+    graph, which carries no ELL table; its window table is built from that
+    graph's col and its dual-K routing reads that graph's degrees.  Capped
+    rows there take the first-k window (eval_sampling off), so no random
+    stream is read."""
+    kw = dict(KW_WINDOW, use_valedges_as_input=True, eval_sampling=False,
+              testbs=8)
+    jds = jloaddataset("Cora", True, synthetic_scale=0.1).reorder_bfs()
+    tds = tloaddataset("Cora", True, synthetic_scale=0.1).reorder_bfs()
+    jt = JTrainer(JConfig(**kw), jds)
+    tt = TTrainer(TConfig(**kw), tds, device="cpu")
+    js = jt.init_state(0)
+    ts = tt.init_state(0)
+    params_from_jax(*jax.device_get((js.params, js.ema)), ts.encoder, ts.predictor)
+    jt._refresh_ell(np.random.default_rng(7))
+    tt._refresh_ell(np.random.default_rng(7))
+
+    test = tt.ds.split_edge["test"]["edge"]
+    assert test.shape[0] > kw["testbs"]  # the dual-K eval runs
+    # some test sources cross k_small once the valid edges are added, and
+    # the train graph's degrees would route every one of them to the small
+    # body (their count fills whole testbs batches)
+    src = test[:, 0]
+    d_train, d_full = tt.g.deg.numpy()[src], tt.full_g.deg.numpy()[src]
+    assert ((d_train <= kw["k_small"]) & (d_full > kw["k_small"])).any()
+    assert np.sum(d_train <= kw["k_small"]) % kw["testbs"] == 0
+
+    jh = jt._eval_encode(js, full=True)
+    th = tt.encode(ts, full=True)
+    want = jt._score_split(js, jh, jt.full_g, test, jt.full_adj2)
+    got = tt._score_split(ts, th, tt.full_g, test, tt.full_adj2)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-5)
+    want = jt.evaluate(js)
+    got = tt.evaluate(ts)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=RTOL, err_msg=key)
+
+
+def test_collab_preset_with_window_table_trains_on_cpu():
+    """presets("collab", "cn5") with the window table, cut to a small graph
+    and batch: ELL tables, dual-K split and window gathers all run."""
+    ds = tsynthetic("collab", seed=0, scale=0.002).reorder_bfs()
+    cfg = TConfig(**{**dataclasses.asdict(tpresets("collab", "cn5", window_table=True)),
+                     "batch_size": 256, "linkbatchsize": 64, "testbs": 512,
+                     "hiddim": 32})
+    tr = TTrainer(cfg, ds, device="cpu")
+    assert tr._use_ell and tr._split is not None
+    state = tr.init_state(0)
+    state, loss = tr.train_epoch(state, np.random.default_rng(0), 1)
+    assert np.isfinite(loss) and tr._ell is not None
+    for vals in tr.evaluate(state).values():
+        assert all(0.0 <= v <= 1.0 for v in vals)
 
 
 def test_cli_run_on_cpu(capsys):
