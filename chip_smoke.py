@@ -33,6 +33,19 @@ and the script exits nonzero:
              steps and around the eval, and one small-body and one big-body
              chunk re-scored with the window gather routed to its plain
              version.
+6. bench_slice - bench.py's own program (bench.py:96-151 at its defaults):
+             ELL tables, k_small 16, frame_group 8, bfloat16 features,
+             window table off.  One timed ELL refresh, three steps and one
+             evaluate; x must be bfloat16 and h float32, membership must
+             launch exactly twice per frame group of each step, and one
+             group is re-scored with membership routed to its plain version.
+7. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
+             at its full size (the three gather kernels of
+             scripts/bench_gather.py on the card); each kernel must launch.
+
+Phase 2 also holds the row gather, the sorted-block gather and the window
+gather at bfloat16 against their plain versions, exactly, at the
+instrument's shapes and at ragged ones.
 
 The line before the last is {"kernels": [...]}, then the nvidia-smi line,
 and the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -64,6 +77,10 @@ DEVICE = "cuda"
 # OCN_BENCH_WINDOW=1, its default ELL tables and k_small)
 WINDOW_PATH = dict(ell_tables=True, ell_refresh=1, ell_eval=True, k_small=16,
                    dual_k_eval=True, window_table=True)
+# bench.py's own program: its defaults add frame_group 8 and bfloat16 to the
+# ELL tables and k_small, and leave the window table off
+BENCH_PATH = dict(WINDOW_PATH, window_table=False, frame_group=8,
+                  dtype="bfloat16")
 
 
 def emit(obj) -> None:
@@ -93,12 +110,13 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def phase_build():
-    from ocn_tpu_torch.ops import membership, window_gather
+    from ocn_tpu_torch.ops import membership, row_gather, window_gather
     from ocn_tpu_torch.utils import native, toolchain
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        kernels = [pool.submit(membership.build), pool.submit(window_gather.build)]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        kernels = [pool.submit(m.build)
+                   for m in (membership, window_gather, row_gather)]
         host = pool.submit(toolchain.build_graphcore)
         kernel_libs = [k.result() for k in kernels]
         host_lib = host.result()
@@ -208,21 +226,178 @@ def window_checks(gen):
     for b, k in ((4096, 64), (4096, 16)):
         pos0 = torch.randint(0, e - k + 1, (b,), generator=gen, device="cuda",
                              dtype=torch.int32)
-        j = k + W.SLACK
-        p0a, _ = W.aligned_starts(pos0, e, k)
-        # the same rows as one index_select, indices built outside the timing
-        idx = torch.clamp(p0a.long()[:, None]
-                          + torch.arange(j, device="cuda"), max=e - 1).reshape(-1)
-        itemsize = y.element_size()
-        timings.append({
-            "shape": [b, j, h],
+        timings.append(window_timing(y, pos0, k))
+    return rows, max_err, timings
+
+
+def window_timing(y, pos0, k):
+    """window_rows timed beside its plain version, one index_select of the
+    same rows (indices built outside the timing) and its bound: each
+    distinct row of the windows read once (overlapping windows share rows),
+    the rows written, the starts read and the offsets written."""
+    from ocn_tpu_torch.ops import window_gather as W
+    from ocn_tpu_torch.scripts.bench_gather import gather_bytes
+
+    (e, h), b, j = y.shape, pos0.shape[0], k + W.SLACK
+    p0a, _ = W.aligned_starts(pos0, e, k)
+    idx = torch.clamp(p0a.long()[:, None]
+                      + torch.arange(j, device="cuda"), max=e - 1).reshape(-1)
+    rb = h * y.element_size()
+    return {"shape": [b, j, h], "dtype": str(y.dtype),
             "ms": cuda_time_ms(lambda: W.window_rows(y, pos0, k)),
             "plain_ms": cuda_time_ms(lambda: W.window_rows_plain(y, pos0, k)),
             "library_ms": cuda_time_ms(lambda: torch.index_select(y, 0, idx)),
-            # read each window's rows and the starts, write the rows and the
-            # offsets; no arithmetic
-            **bound(2 * b * j * h * itemsize + 4 * b + 4 * b, 0)})
-    return rows, max_err, timings
+            **bound(gather_bytes(distinct(idx), b * j, rb, 8 * b), 0)}
+
+
+def distinct(t: torch.Tensor) -> int:
+    return int(torch.unique(t).numel())
+
+
+def exact(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs difference of a copy against its plain version; raises
+    unless the two are equal."""
+    err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: differs from its plain version ({err})")
+    return err
+
+
+def instrument_ids():
+    """The row-gather instrument's ids (its seed-0 NumPy draw, the first of
+    scripts/bench_gather.py), sorted, and its table's shape."""
+    from ocn_tpu_torch.scripts import bench_gather as G
+
+    s = G.SIZES
+    idx = np.random.default_rng(0).integers(0, s["n"], size=(s["m"],),
+                                            dtype=np.int32)
+    return idx, np.sort(idx), s
+
+
+def row_checks(gen, x, idx_np, srt_np):
+    """row_rows against its plain version, exactly: at the instrument's shape
+    on random and sorted ids, on a float32 table, at odd widths with a
+    ragged M and int64 ids, with ids out of range, on an unaligned table."""
+    from ocn_tpu_torch.ops import row_gather as RG
+    from ocn_tpu_torch.scripts import bench_gather as G
+
+    n, h = x.shape
+    m = idx_np.shape[0]
+    idx = torch.as_tensor(idx_np, device="cuda")
+    idx_sorted = torch.as_tensor(srt_np, device="cuda")
+    rows, max_err = [], 0.0
+
+    def check(x, ids, label):
+        nonlocal max_err
+        got = RG.row_rows(x, ids)
+        torch.cuda.synchronize()
+        max_err = max(max_err, exact(f"row_rows {label}", got,
+                                     RG.row_rows_plain(x, ids)))
+        rows.append({"case": label, "shape": list(got.shape),
+                     "dtype": str(x.dtype), "ids": str(ids.dtype)})
+
+    def ids(n, m, dtype=torch.int32):
+        return torch.randint(0, n, (m,), generator=gen, device="cuda", dtype=dtype)
+
+    check(x, idx, "instrument, random ids")
+    check(x, idx_sorted, "instrument, sorted ids")
+    check(x.float(), idx, "float32")
+    # 66-byte rows (2-byte units, 32 threads a row) with M not a multiple of
+    # a block's 8 rows; 52-byte rows (4-byte units, 16 threads) on int64 ids
+    check(torch.randn((1000, 33), generator=gen, device="cuda").bfloat16(),
+          ids(1000, 4097), "bf16 H=33, M=4097")
+    check(torch.randn((300, 13), generator=gen, device="cuda"),
+          ids(300, 1001, torch.int64), "f32 H=13, int64 ids")
+    bad = ids(n, 1000)
+    bad[5], bad[6] = n + 7, -3  # clamped to the last and the first row
+    check(x, bad, "ids out of range")
+    flat = torch.randn(2000 * 64 + 1, generator=gen, device="cuda")
+    check(flat[1:].view(2000, 64), ids(2000, 3000), "unaligned pointer")
+
+    rb = h * x.element_size()
+    timing = {"shape": [m, h], "dtype": str(x.dtype),
+              "ms": cuda_time_ms(lambda: RG.row_rows(x, idx)),
+              "plain_ms": cuda_time_ms(lambda: RG.row_rows_plain(x, idx)),
+              "library_ms": cuda_time_ms(lambda: torch.index_select(x, 0, idx)),
+              "sorted_ms": cuda_time_ms(lambda: RG.row_rows(x, idx_sorted)),
+              "sorted_library_ms": cuda_time_ms(
+                  lambda: torch.index_select(x, 0, idx_sorted)),
+              **bound(G.gather_bytes(distinct(idx), m, rb, 4 * m), 0)}
+    return rows, max_err, timing
+
+
+def sorted_block_checks(gen, x, srt_np, s):
+    """sorted_block_rows against its plain version, exactly: at the
+    instrument's shape, and on a small table with ids outside their tile's
+    block, a ragged last tile clamped at N - W, int32 and int64 ids."""
+    from ocn_tpu_torch.ops import row_gather as RG
+    from ocn_tpu_torch.scripts import bench_gather as G
+
+    n, h = x.shape
+    m, ts, w = srt_np.shape[0], s["ts"], s["w"]
+    ids = torch.as_tensor(srt_np, device="cuda")
+    bases = torch.as_tensor(G.tile_bases(srt_np, n, ts, w), device="cuda")
+    rows, max_err = [], 0.0
+
+    def check(x, ids, bases, ts, w, label):
+        nonlocal max_err
+        got = RG.sorted_block_rows(x, ids, bases, ts, w)
+        torch.cuda.synchronize()
+        max_err = max(max_err, exact(
+            f"sorted_block_rows {label}", got,
+            RG.sorted_block_rows_plain(x, ids, bases, ts, w)))
+        rows.append({"case": label, "shape": list(got.shape), "ts": ts, "w": w,
+                     "ids": str(ids.dtype)})
+        return got
+
+    got = check(x, ids, bases, ts, w, "instrument")
+    # every id lies in its tile's block (the span check), so it is a gather
+    exact("sorted_block_rows against index_select", got,
+          torch.index_select(x, 0, ids))
+
+    n2, ts2, w2 = 3000, 64, 320
+    small = np.sort(np.random.default_rng(1).integers(0, n2, size=1297))
+    small[-40:] = np.sort(np.random.default_rng(2).integers(n2 - 30, n2, size=40))
+    b2 = G.tile_bases(small, n2, ts2, w2)
+    if b2[-1] != n2 - w2:
+        raise AssertionError("the last tile's base should clamp at N - W")
+    small[70] = b2[1] + w2 + 3   # past its block
+    small[130] = b2[2] - 2       # below its block
+    x2 = torch.randn((n2, 256), generator=gen, device="cuda").bfloat16()
+    for dtype in (torch.int32, torch.int64):
+        out = check(x2, torch.as_tensor(small, dtype=dtype, device="cuda"),
+                    torch.as_tensor(b2, dtype=dtype, device="cuda"), ts2, w2,
+                    f"ragged, out of block, clamped, {dtype}")
+        if out[70].any() or out[130].any() or not out[71].any():
+            raise AssertionError("sorted_block_rows: out-of-block rows not zero")
+
+    rb = h * x.element_size()
+    timing = {"shape": [m, h], "ts": ts, "w": w, "dtype": str(x.dtype),
+              "ms": cuda_time_ms(lambda: RG.sorted_block_rows(x, ids, bases, ts, w)),
+              "plain_ms": cuda_time_ms(
+                  lambda: RG.sorted_block_rows_plain(x, ids, bases, ts, w)),
+              "library_ms": cuda_time_ms(lambda: torch.index_select(x, 0, ids)),
+              # every id lies in its block, so all its distinct rows are read
+              **bound(G.gather_bytes(distinct(ids), m, rb,
+                                     4 * m + 4 * bases.numel()), 0)}
+    return rows, max_err, timing
+
+
+def window_bf16_checks(gen, s):
+    """window_rows at the instrument's window shape: a bfloat16 table of
+    E2 rows, B2 windows of K2 (gather_w of scripts/bench_gather.py)."""
+    from ocn_tpu_torch.ops import window_gather as W
+
+    e2, h, b2, k2 = s["e2"], s["h"], s["b2"], s["k2"]
+    y = torch.randn((e2, h), generator=gen, device="cuda").bfloat16()
+    pos0 = torch.randint(0, e2 - k2, (b2,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    got, goff = W.window_rows(y, pos0, k2)
+    torch.cuda.synchronize()
+    want, woff = W.window_rows_plain(y, pos0, k2)
+    err = exact("window_rows bf16", got, want)
+    exact("window_rows bf16 offsets", goff, woff)
+    return err, window_timing(y, pos0, k2)
 
 
 def phase_kernels():
@@ -231,17 +406,32 @@ def phase_kernels():
     m_rows, m_err, m_timing = membership_checks(gen)
     w_rows, w_err, w_timings = window_checks(gen)
     torch.cuda.empty_cache()
+    idx_np, srt_np, s = instrument_ids()
+    x = torch.randn((s["n"], s["h"]), generator=gen, device="cuda").bfloat16()
+    r_rows, r_err, r_timing = row_checks(gen, x, idx_np, srt_np)
+    b_rows, b_err, b_timing = sorted_block_checks(gen, x, srt_np, s)
+    wb_err, wb_timing = window_bf16_checks(gen, s)
+    del x
+    torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "checks": m_rows, "membership_timing": m_timing,
-          "window_checks": w_rows, "window_timing": w_timings})
-    return {"membership": (m_err, m_timing), "window": (w_err, w_timings)}
+          "window_checks": w_rows, "window_timing": w_timings,
+          "row_checks": r_rows, "row_timing": r_timing,
+          "sorted_block_checks": b_rows, "sorted_block_timing": b_timing,
+          "window_bf16_timing": wb_timing})
+    return {"membership": (m_err, m_timing), "window": (w_err, w_timings),
+            "row": (r_err, r_timing), "sorted_block": (b_err, b_timing),
+            "window_bf16": (wb_err, wb_timing)}
 
 
 def phase_reference():
     """The slice at a tiny size, card against CPU, from the same weights:
     PR 1's path (no frame cap binds, so no random stream is read), then the
     window-table path with ELL tables and the dual-K split (capped rows ride
-    the tables, whose offsets come from NumPy, so again no stream is read)."""
+    the tables, whose offsets come from NumPy, so again no stream is read),
+    then bench.py's grouped bfloat16 program on the tables: frame_group 2
+    over a split that the group rounding moves (4 + 3 chunks become 3 + 3)
+    and bfloat16 features."""
     from ocn_tpu_torch.config import Config
     from ocn_tpu_torch.data.loaders import synthetic_dataset
     from ocn_tpu_torch.ops import window_gather as W
@@ -257,8 +447,11 @@ def phase_reference():
     window = dataclasses.replace(
         base, linkbatchsize=32, testbs=128, pad_deg=32, pad_deg2=16,
         ell_tables=True, k_small=8, window_table=True)
+    grouped = dataclasses.replace(
+        window, window_table=False, frame_group=2, dtype="bfloat16",
+        small_frac=0.5, small_frac_neg=0.375)
     out = {"phase": "reference"}
-    for name, cfg in (("plain", base), ("window", window)):
+    for name, cfg in (("plain", base), ("window", window), ("grouped", grouped)):
         losses, hits = {}, {}
         for dev in ("cpu", DEVICE):
             tr = Trainer(cfg, ds, device=dev)
@@ -267,6 +460,10 @@ def phase_reference():
                 raise AssertionError("reference graph exceeds the frame caps")
             if name == "window" and not (tr._use_ell and tr._split):
                 raise AssertionError("window reference: tables or split off")
+            if name == "grouped" and (tr._split != (3, 3)
+                                      or tr.x.dtype != torch.bfloat16):
+                raise AssertionError(f"grouped reference: split {tr._split}, "
+                                     f"features {tr.x.dtype}")
             state = tr.init_state(0)
             rng = np.random.default_rng(0)
             W.window_rows.launches = 0
@@ -276,7 +473,7 @@ def phase_reference():
                 raise AssertionError("window reference: the kernel never ran")
         np.testing.assert_allclose(losses[DEVICE], losses["cpu"], rtol=1e-4)
         np.testing.assert_allclose(hits[DEVICE], hits["cpu"], rtol=1e-4)
-        prefix = "" if name == "plain" else "window_"
+        prefix = "" if name == "plain" else f"{name}_"
         out.update({f"{prefix}loss_cpu": losses["cpu"],
                     f"{prefix}loss_cuda": losses[DEVICE],
                     f"{prefix}hits50_cpu": hits["cpu"],
@@ -527,6 +724,147 @@ def phase_window_slice(ds, **overrides):
     return train, evals
 
 
+def frame_groups(cfg, split, chunk):
+    """Frame groups of one training step, as the JAX package forms them:
+    the small body's nsp + nsn chunks (rounded to whole groups by the split
+    plan) in groups of frame_group, the big body's in groups of eff_grp, the
+    largest divisor of its chunk count <= frame_group."""
+    grp = cfg.frame_group
+    nsp, nsn = split
+    n_small = nsp + nsn
+    n_big = 2 * (cfg.batch_size // chunk) - n_small
+    if n_small % grp:
+        raise AssertionError(f"split {split}: not whole groups of {grp}")
+    eff = max((d for d in range(1, min(n_big, grp) + 1) if n_big % d == 0),
+              default=1)
+    return n_small // grp + n_big // eff
+
+
+def phase_bench_slice(ds, **overrides):
+    """bench.py's own program at full width: grouped frames and bfloat16
+    features on the ELL tables and the dual-K split."""
+    import ocn_tpu_torch.ops.frame as frame
+    from ocn_tpu_torch.ops.membership import (
+        membership_counts, membership_counts_plain)
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg = slice_config(**{**BENCH_PATH, **overrides})
+    tr = Trainer(cfg, ds, device=DEVICE)
+    state = tr.init_state(0)
+    if not (tr._use_ell and tr._split):
+        raise AssertionError(f"bench slice: tables {tr._use_ell}, split {tr._split}")
+    torch.cuda.synchronize()
+    t_trainer = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tr._refresh_ell(np.random.default_rng(1))
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t1
+    with torch.no_grad():
+        h_dtype = tr.encode(state).dtype
+    # bfloat16 features, float32 everything after the first Dense
+    if tr.x.dtype != torch.bfloat16 or h_dtype != torch.float32:
+        raise AssertionError(f"bench slice: x {tr.x.dtype}, h {h_dtype}")
+    c = tr._chunk()
+    groups = frame_groups(cfg, tr._split, c)
+
+    pos, neg, batches = step_batches(tr, ds)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = [], [], []
+    for idx in batches:
+        membership_counts.launches = 0
+        state, ms, loss = run_steps(tr, state, pos, neg, [idx], gen)
+        per_step.append(membership_counts.launches)
+        step_ms += ms
+        losses += loss
+    # one cn_frames call per group: cn1 and cn2 membership, at group rows
+    if per_step != [2 * groups] * len(batches):
+        raise AssertionError(f"membership launches per step {per_step}; "
+                             f"expected {2 * groups} ({groups} groups)")
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    membership_counts.launches = 0
+    te = time.perf_counter()
+    results = tr.evaluate(state)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - te
+    eval_launches = membership_counts.launches
+    check_hits(results)
+
+    # the last step's first small-body group, eval mode, scored with the
+    # kernel and with membership routed to its plain version
+    grp = cfg.frame_group
+    pe, ne, mp, _, _ = tr.prepare_batch(pos[:, batches[-1]], neg[:, batches[-1]],
+                                        batches[-1])
+    g = tr._masked_graph(mp)
+    adj2 = tr._local_adj2(mp)
+    with torch.no_grad():
+        h = tr.encode(state)
+        valid = torch.ones(grp * c, dtype=tr.dtype, device=DEVICE)
+
+        def group_scores():
+            state.predictor.eval()
+            return tr._score_chunk(state, h, g, pe[:, :grp * c], valid, None,
+                                   False, adj2, corr=valid, k=cfg.k_small,
+                                   grp=grp)
+
+        before = membership_counts.launches
+        ks = group_scores()
+        if membership_counts.launches != before + 2:
+            raise AssertionError("the re-scored group did not launch membership twice")
+        frame.membership_counts = membership_counts_plain
+        try:
+            ps = group_scores()
+        finally:
+            frame.membership_counts = membership_counts
+    score_err = (ks - ps).abs().max().item()
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-5)
+    emit({"phase": "bench_slice", "seconds": time.perf_counter() - t0,
+          "trainer_init_s": t_trainer, "ell_refresh_s": refresh_s,
+          "split": list(tr._split), "frame_group": grp,
+          "groups_per_step": groups, "x_dtype": str(tr.x.dtype),
+          "h_dtype": str(h_dtype), "step_ms": step_ms,
+          "train_edges_per_s": [2e3 * cfg.batch_size / ms for ms in step_ms],
+          "losses": losses, "membership_launches_per_step": per_step,
+          "membership_launches_eval": eval_launches, "eval_s": t_eval,
+          "hits": results, "group_score_max_abs_err": score_err,
+          "peak_mem_train_gb": peak_train,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return sum(per_step) + eval_launches
+
+
+def phase_gather_bench(**sizes):
+    """The row-gather instrument; ``sizes`` shrink it for the rehearsal."""
+    from ocn_tpu_torch.ops import row_gather as RG
+    from ocn_tpu_torch.ops import window_gather as W
+    from ocn_tpu_torch.scripts import bench_gather
+
+    t0 = time.perf_counter()
+    RG.row_rows.launches = 0
+    RG.sorted_block_rows.launches = 0
+    W.window_rows.launches = 0
+    out = bench_gather.main(device=DEVICE, **sizes)
+    launches = {"row_rows": RG.row_rows.launches,
+                "sorted_block_rows": RG.sorted_block_rows.launches,
+                "window_rows": W.window_rows.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"gather bench: a kernel never launched {launches}")
+    torch.cuda.empty_cache()
+    emit({"phase": "gather_bench", "seconds": time.perf_counter() - t0,
+          "launches": launches, **out})
+    return launches, out["variants"]
+
+
+def kernel_entry(name, module, replaces, launches, err, timing, **extra):
+    """One entry of the {"kernels": [...]} line."""
+    return {"name": name, "route": "cuda", "source": module.SOURCE,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            **{key: timing[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+            "library_ms": timing.get("library_ms"), "shape": timing.get("shape"),
+            **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -537,7 +875,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from ocn_tpu_torch.data.loaders import synthetic_dataset
-    from ocn_tpu_torch.ops import membership, window_gather
+    from ocn_tpu_torch.ops import membership, row_gather, window_gather
 
     smi = phase_build()
     kern = phase_kernels()
@@ -548,29 +886,35 @@ def main() -> int:
     m_launches = phase_slice(ds, t_data)
     torch.cuda.empty_cache()
     w_train, w_eval = phase_window_slice(ds)
+    torch.cuda.empty_cache()
+    b_launches = phase_bench_slice(ds)
+    del ds
+    torch.cuda.empty_cache()
+    g_launches, g_variants = phase_gather_bench()
 
     m_err, m_timing = kern["membership"]
     w_err, w_timings = kern["window"]
-    emit({"kernels": [{
-        "name": "membership_counts", "route": "cuda",
-        "source": membership.SOURCE, "replaces": membership.REPLACES,
-        "launches": m_launches,
-        "launches_window_slice": w_train["membership"] + w_eval["membership"],
-        "max_abs_err": m_err, "ms": m_timing["ms"],
-        "plain_ms": m_timing["plain_ms"], "bound_ms": m_timing["bound_ms"],
-        "bound_by": m_timing["bound_by"], "library_ms": None,
-    }, {
-        "name": "window_rows", "route": "cuda",
-        "source": window_gather.SOURCE, "replaces": window_gather.REPLACES,
-        "launches": w_train["window"] + w_eval["window"],
-        "launches_train": w_train["window"], "launches_eval": w_eval["window"],
-        "max_abs_err": w_err, "ms": w_timings[0]["ms"],
-        "plain_ms": w_timings[0]["plain_ms"],
-        "bound_ms": w_timings[0]["bound_ms"],
-        "bound_by": w_timings[0]["bound_by"],
-        "library_ms": w_timings[0]["library_ms"],
-        "shape": w_timings[0]["shape"], "k16": w_timings[1],
-    }]})
+    emit({"kernels": [
+        kernel_entry("membership_counts", membership, membership.REPLACES,
+                     m_launches, m_err, m_timing,
+                     launches_window_slice=w_train["membership"] + w_eval["membership"],
+                     launches_bench_slice=b_launches),
+        kernel_entry("window_rows", window_gather, window_gather.REPLACES,
+                     w_train["window"] + w_eval["window"], w_err, w_timings[0],
+                     launches_train=w_train["window"],
+                     launches_eval=w_eval["window"], k16=w_timings[1]),
+        kernel_entry("window_rows:gather_w", window_gather,
+                     "scripts/bench_gather.py:148", g_launches["window_rows"],
+                     *kern["window_bf16"],
+                     gather_bench_ms=g_variants["window_dma"]["ms"]),
+        kernel_entry("row_rows", row_gather, row_gather.REPLACES,
+                     g_launches["row_rows"], *kern["row"],
+                     gather_bench_ms=g_variants["pallas"]["ms"],
+                     gather_bench_sorted_ms=g_variants["pallas_srt"]["ms"]),
+        kernel_entry("sorted_block_rows", row_gather, row_gather.REPLACES_SORTED,
+                     g_launches["sorted_block_rows"], *kern["sorted_block"],
+                     gather_bench_ms=g_variants["onehot_mxu"]["ms"]),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

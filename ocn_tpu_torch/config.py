@@ -462,9 +462,7 @@ def require_supported(cfg: Config) -> None:
     """Raise NotImplementedError naming the first field whose value this
     slice of the port does not implement."""
     unsupported = (
-        ("frame_group", cfg.frame_group > 1, "grouped frame builds"),
         ("hoist_frames", cfg.hoist_frames, "hoisted frame builds"),
-        ("dtype", cfg.dtype == "bfloat16", "bfloat16 training"),
         ("cndeg", cfg.cndeg > 0, "CN-set degree caps"),
         ("two_hop_mode", cfg.two_hop_mode == "sddmm", "on-the-fly A^2 counts"),
         ("encoder_stack", cfg.encoder_stack == "ho", "the pygho encoder stack"),

@@ -11,6 +11,12 @@
   learned weights: x = sum_l jkparams[l] * x_l.
 
 DropAdj masks the graph's values per layer, drawing from the generator.
+
+Under Config.dtype="bfloat16" the node features arrive in bfloat16, as in
+the JAX package: the xdp dropout scales them in bfloat16 (x / keep rounds
+there, as flax's Dropout does), the first Dense computes in float32 (flax's
+promotion, nn/mlp.py Dense), and every later stage and the output are
+float32.
 """
 from __future__ import annotations
 

@@ -36,12 +36,19 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class Dense(nn.Linear):
-    """nn.Linear with flax's default initialisation."""
+    """nn.Linear with flax's default initialisation and flax's type rule:
+    nn.Dense (dtype=None) promotes its input and its float32 kernel to a
+    common type, so a bfloat16 input (the node features under
+    Config.dtype="bfloat16") is computed on in float32 and everything after
+    the first Dense is float32."""
 
     def reset_parameters(self, gen: Optional[torch.Generator] = None) -> None:
         lecun_normal_(self.weight, self.in_features, gen)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
 
 
 def layer_norm(n: int) -> nn.LayerNorm:

@@ -12,7 +12,7 @@ One training step:
 * the loss over all chunks is backpropagated once and a two-group Adam
   (gnnlr for the encoder, prelr for the predictor) takes a step.
 
-Three layout options of the JAX package are ported:
+Four layout options of the JAX package are ported:
 
 * ELL tables (``ell_tables``): each epoch freezes the window offsets of the
   capped rows in (N, K) tables of g and A^2 (sparse/ell.py), rebuilt on the
@@ -24,14 +24,21 @@ Three layout options of the JAX package are ported:
   and inverse permutations restore the batch order for the loss;
 * the window table (``window_table``): y = h.detach()[g.col] is built once
   per step and the frame matmuls read contiguous windows of it through the
-  window-gather kernel (ops/window_gather.py).
+  window-gather kernel (ops/window_gather.py);
+* grouped frames (``frame_group`` > 1): each body's chunks are scored in
+  groups whose frames one cn_frames call builds (``_score_chunk``); the
+  predictor still runs per chunk.  Eval is never grouped.
+
+``dtype="bfloat16"`` keeps the node features and the valid/correction
+planes in bfloat16; the first Dense promotes to float32 (nn/mlp.py), so
+h, the frames and every parameter are float32, as in the JAX package.
 
 Randomness (dropout, DropAdj, window offsets of capped rows off the tables)
 comes from one ``torch.Generator`` per epoch, seeded from the host NumPy
 generator that also draws the batch permutation and negatives, exactly as
 ocn_tpu draws its PRNG key; the ELL offsets come from a NumPy generator
-derived from the epoch number.  Not ported yet: grouped or hoisted frames,
-bfloat16, meshes (Config.require_supported).
+derived from the epoch number.  Not ported yet: hoisted frames, meshes
+(Config.require_supported).
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from ocn_tpu_torch.config import Config, require_supported
 from ocn_tpu_torch.data.loaders import LinkDataset
 from ocn_tpu_torch.nn.encoder import GCNEncoder
 from ocn_tpu_torch.nn.predictors import build_predictor
-from ocn_tpu_torch.ops.frame import cn_frames
+from ocn_tpu_torch.ops.frame import CNFrame, cn_frames
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse import ell as ELL
 from ocn_tpu_torch.sparse.csr import Graph, graph_from_numpy
@@ -84,6 +91,15 @@ def _largest_divisor_leq(n: int, target: int) -> int:
     return 1
 
 
+def _group_size(n: int, frame_group: int) -> int:
+    """Chunks per frame group in a body of ``n`` chunks: the largest divisor
+    of n that is <= frame_group (the JAX package's eff_grp)."""
+    for d in range(max(min(n, frame_group), 1), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
 @dataclasses.dataclass
 class TrainState:
     """The modules (parameters and the predictor's EMA buffers) and the
@@ -106,10 +122,14 @@ class Trainer:
         self.g = g_host.to(self.device)
         full_host = ds.full_graph() if ds.full_edge_index is not None else None
         self.full_g = full_host.to(self.device) if full_host is not None else self.g
+        # "bfloat16" stores the node features and the valid/correction
+        # planes in bfloat16; parameters, h and the frames stay float32
+        # (nn/mlp.py Dense), as in the JAX package
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         if ds.max_x >= 0:
             self.x = torch.as_tensor(ds.x, dtype=torch.int64, device=self.device)
         else:
-            self.x = torch.as_tensor(ds.x, dtype=torch.float32, device=self.device)
+            self.x = torch.as_tensor(ds.x, dtype=self.dtype, device=self.device)
 
         # precomputed A^2 for the "gather" two-hop mode: one host SpGEMM per
         # graph instead of the reference's per-batch SpGEMM
@@ -165,7 +185,10 @@ class Trainer:
         low-degree majority in the leading chunks, so a fixed boundary at
         the degree distribution's quantile routes almost exactly the
         deg <= k_small edges to the small body; edges that spill into it get
-        the usual deg/k reweighted cap."""
+        the usual deg/k reweighted cap.  With frame_group > 1 the small
+        body's chunk count nsp + nsn is rounded down to whole groups (taking
+        from the larger side, negatives on a tie), which moves chunks to the
+        big body and caps no extra edge."""
         cfg = self.cfg
         if cfg.k_small <= 0 or cfg.k_small >= cfg.pad_deg or cfg.hoist_frames:
             return None
@@ -183,6 +206,12 @@ class Trainer:
             fneg = float(np.mean(deg <= cfg.k_small))
         nsp = min(nchunk, int(fp * nchunk))
         nsn = min(nchunk, int(fneg * nchunk))
+        grp = max(cfg.frame_group, 1)
+        while nsp + nsn > 0 and (nsp + nsn) % grp:
+            if nsn >= nsp and nsn > 0:
+                nsn -= 1
+            else:
+                nsp -= 1
         if nsp + nsn == 0:
             return None
         return nsp, nsn
@@ -219,14 +248,23 @@ class Trainer:
 
     def _score_chunk(self, state: TrainState, h, g: Graph, edges, valid, gen,
                      training: bool, adj2: Graph, corr=None, y=None,
-                     k: Optional[int] = None) -> torch.Tensor:
-        """Score one (2, C) chunk; returns (C,) scores.  ``corr``: (C,)
-        maskinput self-path correction (1 for positive train edges whose
-        (i, j) was just masked out).  In eval, ``gen`` samples capped rows
-        when cfg.eval_sampling (else the first-k window).  ``y``: the
-        window table h.detach()[g.col] (the frame matmul then reads the
-        candidate frame's CSR windows of it).  ``k``: candidate-frame width
-        (the dual-K small body), default pad_deg."""
+                     k: Optional[int] = None, grp: int = 1) -> torch.Tensor:
+        """Score ``grp`` chunks of C links, (2, grp*C) edges; returns
+        (grp*C,) scores.  ``corr``: (grp*C,) maskinput self-path correction
+        (1 for positive train edges whose (i, j) was just masked out).  In
+        eval, ``gen`` samples capped rows when cfg.eval_sampling (else the
+        first-k window).  ``y``: the window table h.detach()[g.col] (the
+        frame matmul then reads the candidate frame's CSR windows of it).
+        ``k``: candidate-frame width (the dual-K small body), default
+        pad_deg.
+
+        ``grp`` > 1 is the port of _scan_scores_grouped: one cn_frames call
+        builds the frames of the whole group (two membership launches at
+        grp*C rows), then the predictor runs once per chunk on its row
+        slice, so column normalisation stays per chunk and the EMA advances
+        chunk by chunk.  One generator serves both, so the group draws its
+        capped-row windows once and each chunk its dropout, in that order;
+        the streams cannot equal JAX's fold_in keys."""
         cfg = self.cfg
         frame_gen = gen if (training or cfg.eval_sampling) else None
         cn1, cn2, src = cn_frames(
@@ -235,12 +273,19 @@ class Trainer:
             cn2_counts=cfg.cn2_counts, exact_two_hop=cfg.exact_two_hop,
             with_src=True)
         # padded/invalid edges must not pollute batch column sums / EMA
-        cn1 = cn1.with_values(cn1.val * valid[:, None])
-        cn2 = cn2.with_values(cn2.val * valid[:, None])
-        out = state.predictor(h, g.n_nodes, cn1, cn2, edges,
-                              gen if training else None, y=y,
-                              pos=src.pos if y is not None else None)
-        return out.reshape(-1)
+        v1 = cn1.val * valid[:, None]
+        v2 = cn2.val * valid[:, None]
+        c = edges.shape[1] // grp
+        outs = []
+        for j in range(grp):
+            sl = slice(j * c, (j + 1) * c)
+            out = state.predictor(
+                h, g.n_nodes, CNFrame(cn1.ids[sl], v1[sl], g.n_nodes),
+                CNFrame(cn2.ids[sl], v2[sl], g.n_nodes), edges[:, sl],
+                gen if training else None, y=y,
+                pos=src.pos[sl] if y is not None else None)
+            outs.append(out.reshape(-1))
+        return torch.cat(outs) if grp > 1 else outs[0]
 
     def _loss(self, pos_out, neg_out):
         cfg = self.cfg
@@ -280,8 +325,8 @@ class Trainer:
         """The training loss of one batch, with its autograd graph: the
         encoder over the masked graph, then every positive chunk and every
         negative chunk in order (with the dual-K split: the small body's
-        positive and negative chunks, then the big body's).  Steps the
-        predictor's EMA buffers."""
+        positive and negative chunks, then the big body's), in frame groups
+        of up to frame_group chunks.  Steps the predictor's EMA buffers."""
         cfg = self.cfg
         c = self._chunk()
         b = pos.shape[1]
@@ -298,28 +343,37 @@ class Trainer:
         # the window table: one CSR-order row gather per step; the gradient
         # to h flows through the frame matmuls' backward, not through y
         y = h.detach()[g.col] if cfg.window_table else None
-        valid = torch.ones(c, device=self.device)
-        corr = valid if cfg.maskinput else None
 
         def score(edges, n_pos, k=None):
-            # chunks of (2, n*c) edges, the first n_pos of them positive
-            return [
-                self._score_chunk(
-                    state, h, g, edges[:, i * c:(i + 1) * c], valid, gen, True,
-                    adj2, corr=corr if i < n_pos else None, y=y, k=k)
-                for i in range(edges.shape[1] // c)
-            ]
+            # (2, n*c) edges, the first n_pos chunks positive, scored in
+            # groups of _group_size(n, frame_group) chunks
+            n = edges.shape[1] // c
+            grp = _group_size(n, cfg.frame_group)
+            valid = torch.ones(grp * c, dtype=self.dtype, device=self.device)
+            out = []
+            for i in range(0, n, grp):
+                # positive chunks lead the body, so a group's are a prefix
+                npos = min(max(n_pos - i, 0), grp)
+                corr = None
+                if cfg.maskinput and npos:
+                    corr = valid if npos == grp else torch.cat(
+                        [valid[:npos * c], torch.zeros_like(valid[npos * c:])])
+                out.append(self._score_chunk(
+                    state, h, g, edges[:, i * c:(i + grp) * c], valid, gen,
+                    True, adj2, corr=corr, y=y, k=k, grp=grp))
+            return torch.cat(out) if out else h.new_zeros(0)
 
         if split is None:
-            out = torch.cat(score(torch.cat([pos, neg], dim=1), nchunk))
+            out = score(torch.cat([pos, neg], dim=1), nchunk)
             return self._loss(out[:b], out[b:])
         nsp, nsn = split
         small = score(torch.cat([pos[:, :nsp * c], neg[:, :nsn * c]], dim=1),
                       nsp, k=cfg.k_small)
         big = score(torch.cat([pos[:, nsp * c:], neg[:, nsn * c:]], dim=1),
                     nchunk - nsp)
-        pos_sorted = torch.cat(small[:nsp] + big[:nchunk - nsp])
-        neg_sorted = torch.cat(small[nsp:] + big[nchunk - nsp:])
+        nbp = (nchunk - nsp) * c
+        pos_sorted = torch.cat([small[:nsp * c], big[:nbp]])
+        neg_sorted = torch.cat([small[nsp * c:], big[nbp:]])
         # the original batch order, so per-index pos/neg pairing survives
         return self._loss(pos_sorted[inv_p], neg_sorted[inv_n])
 

@@ -1,10 +1,10 @@
 """chip_smoke.py's model phases rehearsed on the CPU at a tiny size.
 
 The script itself needs a card; here its ``DEVICE`` is the CPU, the CUDA
-synchronisation and memory calls are no-ops, and the two kernel wrappers
-are wrapped to count their (plain-version) calls, so the phases' own checks
+synchronisation and memory calls are no-ops, and the kernel wrappers are
+wrapped to count their (plain-version) calls, so the phases' own checks
 (launch counts, finite losses, Hits ranges, kernel-against-plain chunk
-scores) run as they do on the card."""
+scores, feature and hidden dtypes) run as they do on the card."""
 import json
 
 import numpy as np
@@ -15,6 +15,7 @@ import chip_smoke
 from ocn_tpu_torch.data.loaders import synthetic_dataset
 from ocn_tpu_torch.ops import frame
 from ocn_tpu_torch.ops import membership as M
+from ocn_tpu_torch.ops import row_gather as RG
 from ocn_tpu_torch.ops import window_gather as W
 
 TINY = dict(batch_size=1024, testbs=1024, linkbatchsize=128, hiddim=16)
@@ -38,6 +39,8 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(M, "membership_counts", membership)
     monkeypatch.setattr(frame, "membership_counts", membership)
     monkeypatch.setattr(W, "window_rows", _counting(W.window_rows))
+    monkeypatch.setattr(RG, "row_rows", _counting(RG.row_rows))
+    monkeypatch.setattr(RG, "sorted_block_rows", _counting(RG.sorted_block_rows))
 
 
 def test_slice_phases_on_cpu(on_cpu, capsys):
@@ -58,3 +61,26 @@ def test_reference_phase_on_cpu(on_cpu, capsys):
     chip_smoke.phase_reference()
     line = json.loads(capsys.readouterr().out)
     assert np.isfinite(line["loss_cpu"] + line["window_loss_cpu"]).all()
+
+
+def test_bench_and_gather_phases_on_cpu(on_cpu, capsys):
+    ds = synthetic_dataset("collab", seed=0, scale=0.01).reorder_bfs()
+    launches = chip_smoke.phase_bench_slice(ds, **TINY)
+    sizes = dict(m=2048, n=1500, h=16, e2=9000, b2=64, k2=64, ts=256, w=512)
+    g_launches, variants = chip_smoke.phase_gather_bench(iters=1, warmup=0,
+                                                         **sizes)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [line["phase"] for line in lines] == ["bench_slice", "gather_bench"]
+    bench = lines[0]
+    # 8 + 8 chunks a step: the small and the big body one group each
+    assert bench["split"] == [4, 4] and bench["groups_per_step"] == 2
+    assert bench["membership_launches_per_step"] == [4, 4, 4]
+    assert launches == 12 + bench["membership_launches_eval"]
+    assert (bench["x_dtype"], bench["h_dtype"]) == ("torch.bfloat16", "torch.float32")
+    assert bench["group_score_max_abs_err"] == 0.0
+    # the instrument, one check and one timed call per variant: the row
+    # kernel on random and sorted ids, the window and sorted-block kernels
+    assert g_launches == {"row_rows": 4, "sorted_block_rows": 2, "window_rows": 2}
+    assert set(variants) == {"xla", "xla_sorted", "pallas", "pallas_srt",
+                             "window_xla", "window_dma", "onehot_mxu"}

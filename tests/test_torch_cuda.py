@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA membership and window-gather kernels
-against their plain versions, and the kernels' callers on CUDA tensors
-against the same calls on CPU tensors.  Every test here is marked ``cuda``
+"""The port on the card: the CUDA membership, window-gather, row-gather
+and sorted-block-gather kernels against their plain versions, and the
+kernels' callers on CUDA tensors against the same calls on CPU tensors
+(the grouped bfloat16 steps among them).  Every test here is marked ``cuda``
 and skips without a GPU.  The file imports neither JAX nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
@@ -14,7 +15,9 @@ from ocn_tpu_torch.config import Config
 from ocn_tpu_torch.data.loaders import synthetic_dataset
 from ocn_tpu_torch.ops import frame as tf
 from ocn_tpu_torch.ops import membership as tm
+from ocn_tpu_torch.ops import row_gather as trg
 from ocn_tpu_torch.ops import window_gather as tw
+from ocn_tpu_torch.scripts import bench_gather as G
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse.csr import graph_from_numpy
 from ocn_tpu_torch.train.loop import Trainer
@@ -179,4 +182,87 @@ def test_window_path_steps_on_the_card_match_cpu(cuda):
     steps = ds.split_edge["train"]["edge"].shape[0] // cfg.batch_size
     chunks = 2 * cfg.batch_size // cfg.linkbatchsize
     assert tw.window_rows.launches - before == 2 * steps * chunks
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,h,m,dtype,itype,sort", [
+    (235868, 256, 262144, torch.bfloat16, torch.int32, False),  # the instrument
+    (235868, 256, 262144, torch.bfloat16, torch.int32, True),
+    (235868, 256, 262144, torch.float32, torch.int64, False),
+    (1000, 33, 4097, torch.bfloat16, torch.int32, False),  # 2-byte units, ragged M
+    (300, 13, 1001, torch.float32, torch.int64, False),    # 4-byte units
+    (50, 3, 77, torch.uint8, torch.int32, False),          # byte units, 4 a row
+])
+def test_row_rows_kernel_matches_plain(cuda, n, h, m, dtype, itype, sort):
+    gen = torch.Generator(device=cuda).manual_seed(n + m)
+    x = (torch.randint(0, 255, (n, h), generator=gen, device=cuda, dtype=dtype)
+         if dtype == torch.uint8 else
+         torch.randn((n, h), generator=gen, device=cuda).to(dtype))
+    idx = torch.randint(0, n, (m,), generator=gen, device=cuda, dtype=itype)
+    idx[3], idx[4] = n + 5, -2  # clamped into [0, n)
+    if sort:
+        idx = torch.sort(idx).values
+    before = trg.row_rows.launches
+    got = trg.row_rows(x, idx)
+    torch.cuda.synchronize()
+    assert trg.row_rows.launches == before + 1
+    assert torch.equal(got, trg.row_rows_plain(x, idx))  # a copy
+
+
+def test_sorted_block_rows_kernel_matches_plain(cuda):
+    s = G.SIZES
+    idx = np.sort(np.random.default_rng(0).integers(0, s["n"], size=s["m"]))
+    bases = G.tile_bases(idx, s["n"], s["ts"], s["w"])
+    x = torch.randn((s["n"], s["h"]), device=cuda).bfloat16()
+    ids = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    tb = torch.as_tensor(bases, device=cuda)
+    before = trg.sorted_block_rows.launches
+    got = trg.sorted_block_rows(x, ids, tb, s["ts"], s["w"])
+    torch.cuda.synchronize()
+    assert trg.sorted_block_rows.launches == before + 1
+    assert torch.equal(got, trg.sorted_block_rows_plain(x, ids, tb, s["ts"], s["w"]))
+    assert torch.equal(got, torch.index_select(x, 0, ids))  # all in their blocks
+    # ids outside their blocks, a ragged last tile clamped at n - w, int64
+    n, ts, w = 3000, 64, 320
+    small = np.sort(np.random.default_rng(1).integers(0, n, size=1297))
+    small[-40:] = np.sort(np.random.default_rng(2).integers(n - 30, n, size=40))
+    b = G.tile_bases(small, n, ts, w)
+    small[70], small[130] = b[1] + w + 3, b[2] - 2
+    x2 = torch.randn((n, 256), device=cuda).bfloat16()
+    ids2 = torch.as_tensor(small, device=cuda)
+    b2 = torch.as_tensor(b, dtype=torch.int64, device=cuda)
+    got = trg.sorted_block_rows(x2, ids2, b2, ts, w)
+    assert torch.equal(got, trg.sorted_block_rows_plain(x2, ids2, b2, ts, w))
+    assert not got[70].any() and not got[130].any() and got[71].any()
+
+
+def test_row_gather_wrappers_reject(cuda):
+    x = torch.randn(100, 8, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        trg.row_rows(x, idx.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        trg.row_rows(x.t().contiguous().t(), idx)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        trg.row_rows(x, idx.cpu())
+    with pytest.raises(TypeError, match="one type"):
+        trg.sorted_block_rows(x, idx, idx[:1].long(), 4, 8)
+
+
+def test_grouped_bf16_steps_on_the_card_match_cpu(cuda):
+    """bench.py's grouped bfloat16 program in small: frame_group 2 over a
+    split the group rounding moves (4 + 3 chunks become 3 + 3)."""
+    ds = synthetic_dataset("Cora", seed=0, scale=0.3).reorder_bfs()
+    cfg = Config(**dict(TRAIN_KW, batch_size=256, linkbatchsize=32, pad_deg=32,
+                        pad_deg2=16, ell_tables=True, k_small=8, frame_group=2,
+                        dtype="bfloat16", small_frac=0.5, small_frac_neg=0.375))
+
+    def check(tr):
+        assert tr._split == (3, 3) and tr.x.dtype == torch.bfloat16
+
+    before = tm.membership_counts.launches
+    losses = {dev: _epoch_losses(cfg, ds, dev, check) for dev in ("cpu", "cuda")}
+    # 3 small groups and 5 big groups a step, two membership launches each
+    steps = ds.split_edge["train"]["edge"].shape[0] // cfg.batch_size
+    assert tm.membership_counts.launches - before == 2 * steps * 2 * 8
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

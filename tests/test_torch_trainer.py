@@ -10,7 +10,9 @@ accumulate in a different order on the two sides, and the differences
 compound over the steps."""
 import dataclasses
 
+import flax.linen as nn
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,8 @@ from ocn_tpu_torch.config import Config as TConfig
 from ocn_tpu_torch.config import presets as tpresets
 from ocn_tpu_torch.data.loaders import loaddataset as tloaddataset
 from ocn_tpu_torch.data.loaders import synthetic_dataset as tsynthetic
+from ocn_tpu_torch.nn.mlp import dropout as tdropout
+from ocn_tpu_torch.ops import frame as tframe
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.train.loop import Trainer as TTrainer
 from ocn_tpu_torch.weights import params_from_jax
@@ -227,6 +231,158 @@ def test_collab_preset_with_window_table_trains_on_cpu():
     assert np.isfinite(loss) and tr._ell is not None
     for vals in tr.evaluate(state).values():
         assert all(0.0 <= v <= 1.0 for v in vals)
+
+
+@pytest.fixture(scope="module")
+def cora():
+    return (jsynthetic("Cora", seed=0, scale=0.1).reorder_bfs(),
+            tsynthetic("Cora", seed=0, scale=0.1).reorder_bfs())
+
+
+@pytest.mark.parametrize("frame_group,small_frac,small_frac_neg", [
+    (1, -1.0, -1.0),     # auto fractions, no groups
+    (8, -1.0, -1.0),     # the bench's group, auto fractions
+    (2, 0.5, 0.3125),    # 8 + 5 chunks: the larger side gives one, 7 + 5
+    (4, 0.375, 0.5),     # 6 + 8: negatives give two, 6 + 6
+    (5, 0.75, 0.75),     # 12 + 12: ties take turns, negatives first, 10 + 10
+    (8, 0.0625, 0.0),    # 1 + 0 rounds to nothing: no split
+])
+def test_split_plan_matches_jax(cora, frame_group, small_frac, small_frac_neg):
+    kw = dict(KW, ell_tables=True, k_small=4, pad_deg=16, pad_deg2=8,
+              batch_size=256, linkbatchsize=16, frame_group=frame_group,
+              small_frac=small_frac, small_frac_neg=small_frac_neg)
+    jt = JTrainer(JConfig(**kw), cora[0])
+    tt = TTrainer(TConfig(**kw), cora[1], device="cpu")
+    assert tt._split == jt._split
+    if small_frac >= 0:
+        want = {2: (7, 5), 4: (6, 6), 5: (10, 10), 8: None}[frame_group]
+        assert tt._split == want
+
+
+# the bench program's grouped frames in small: ELL tables, the dual-K split
+# at a split that the group rounding moves ((2, 1) chunks become (1, 1)),
+# bfloat16 features; the big body's 6 chunks run as 3 groups of 2
+KW_GROUPED = dict(KW_WINDOW, frame_group=2, small_frac=0.5,
+                  small_frac_neg=0.25, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("window_table", [False, True])
+def test_grouped_bf16_trajectory(cora, monkeypatch, window_table):
+    kw = dict(KW_GROUPED, window_table=window_table)
+    jt = JTrainer(JConfig(**kw), cora[0])
+    tt = TTrainer(TConfig(**kw), cora[1], device="cpu")
+    assert tt._split == jt._split == (1, 1)
+    assert TTrainer(TConfig(**dict(kw, frame_group=1)), cora[1],
+                    device="cpu")._split == (2, 1)
+    js = jt.init_state(0)
+    ts = tt.init_state(0)
+    params_from_jax(*jax.device_get((js.params, js.ema)), ts.encoder, ts.predictor)
+    jt._refresh_ell(np.random.default_rng(7))
+    tt._refresh_ell(np.random.default_rng(7))
+
+    # membership runs once for cn1 and once for cn2 per frame group, at the
+    # group's rows
+    rows = []
+    real = tframe.membership_counts
+
+    def counting(q, *args):
+        rows.append(q.shape[0])
+        return real(q, *args)
+
+    monkeypatch.setattr(tframe, "membership_counts", counting)
+    e = tt.train_edges.shape[1]
+    rng = np.random.default_rng(5)
+    perm = rng.permutation(e)
+    neg = B.negative_sampling(tt.ds.edge_index, tt.ds.n_nodes, e, rng)
+    bs, c = kw["batch_size"], kw["linkbatchsize"]
+    gen = torch.Generator().manual_seed(0)
+    jl, tl = [], []
+    for i in range(5):
+        idx = perm[i * bs:(i + 1) * bs]
+        pos_b, neg_b = tt.train_edges[:, idx], neg[:, idx]
+        pe, ne, mp, ip, inn = jt.prepare_batch(pos_b, neg_b, idx)
+        js, loss = jt.train_step(js, pe, ne, mp, jax.random.PRNGKey(i), ip, inn)
+        jl.append(float(loss))
+        rows.clear()
+        pe, ne, mp, ip, inn = tt.prepare_batch(pos_b, neg_b, idx)
+        ts, loss = tt.train_step(ts, pe, ne, mp, gen, ip, inn)
+        tl.append(float(loss))
+        assert rows == [2 * c] * 8  # 1 small group + 3 big groups, 2 each
+    np.testing.assert_allclose(tl, jl, rtol=RTOL)
+    assert len(set(jl)) == 5
+
+    rj, rt = np.random.default_rng(9), np.random.default_rng(9)
+    js, jloss = jt.train_epoch(js, rj, 1)
+    ts, tloss = tt.train_epoch(ts, rt, 1)
+    np.testing.assert_allclose(tloss, jloss, rtol=RTOL)
+    # the EMA still advances once per chunk
+    ema = jax.device_get(js.ema)
+    assert int(ts.predictor.n) == int(ema["n"]) == 2 * bs // c * (5 + e // bs)
+    np.testing.assert_allclose(float(ts.predictor.innerprod),
+                               float(ema["innerprod"]), rtol=RTOL)
+    want = jt.evaluate(js)
+    got = tt.evaluate(ts)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=RTOL, err_msg=key)
+
+
+def _bf16_bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy()
+    return np.asarray(a).view(np.int16)
+
+
+def test_bfloat16_features_and_encoder_match_jax(cora):
+    """Under dtype="bfloat16" only the node features are bfloat16: h and
+    every parameter stay float32 in both packages.  Features rounded to
+    bfloat16 move the encoder output by ``gap`` against float32 ones; the
+    port must agree with the JAX package far inside that gap, so a port that
+    kept float32 features fails here."""
+    kw = dict(KW, dtype="bfloat16")
+    jt = JTrainer(JConfig(**kw), cora[0])
+    tt = TTrainer(TConfig(**kw), cora[1], device="cpu")
+    js = jt.init_state(0)
+    ts = tt.init_state(0)
+    params_from_jax(*jax.device_get((js.params, js.ema)), ts.encoder, ts.predictor)
+    assert jt.x.dtype == jnp.bfloat16 and tt.x.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bf16_bits(tt.x), _bf16_bits(jt.x))
+    assert all(p.dtype == torch.float32 for p in ts.encoder.parameters())
+    jh = np.asarray(jt.encode(js.params, jt.g))
+    th = tt.encode(ts)
+    assert jh.dtype == np.float32 and th.dtype == torch.float32
+
+    j32 = JTrainer(JConfig(**dict(kw, dtype="float32")), cora[0])
+    scale = np.abs(jh).max()
+    gap = np.abs(np.asarray(j32.encode(js.params, j32.g)) - jh).max() / scale
+    tol = 1e-5  # float32 sums in another order
+    assert gap > 10 * tol, gap
+    np.testing.assert_allclose(th.numpy(), jh, rtol=tol, atol=tol * scale)
+
+    # the xdp dropout divides bfloat16 features by keep in bfloat16, as
+    # flax's Dropout does: entries both keep carry the same bits
+    x = jt.x[:64]
+    jout = nn.Dropout(0.25, deterministic=False).apply(
+        {}, x, rngs={"dropout": jax.random.PRNGKey(0)})
+    tout = tdropout(tt.x[:64], 0.25, True, torch.Generator().manual_seed(0))
+    assert jout.dtype == jnp.bfloat16 and tout.dtype == torch.bfloat16
+    both = (np.asarray(jout) != 0) & (tout != 0).numpy() & (np.asarray(x) != 0)
+    assert both.sum() > 100
+    np.testing.assert_array_equal(_bf16_bits(tout)[both], _bf16_bits(jout)[both])
+
+
+def test_cli_collab_preset_at_the_bench_group_and_dtype(capsys):
+    cfg = tcli.parseargs([
+        "--dataset", "collab", "--predictor", "cn5", "--preset",
+        "--frame_group", "8", "--dtype", "bfloat16", "--epochs", "1",
+        "--runs", "1", "--synthetic_scale", "0.01", "--batch_size", "1024",
+        "--linkbatchsize", "128", "--testbs", "1024", "--hiddim", "16",
+        "--platform", "cpu"])
+    assert (cfg.frame_group, cfg.dtype, cfg.k_small, cfg.ell_tables) == (
+        8, "bfloat16", 16, True)
+    summary = tcli.run(cfg)
+    out = capsys.readouterr().out
+    assert "Final result: val" in out and out.count("Hits@50  Run: 01") == 1
+    assert 0.0 <= summary["val_mean"] <= 1.0
 
 
 def test_cli_run_on_cpu(capsys):
