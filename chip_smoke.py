@@ -11,9 +11,12 @@ and the script exits nonzero:
              name and power limit as nvidia-smi reports them.
 2. kernels - every kernel against its plain PyTorch version on the card at
              the shapes the main path gives it (the window gather exactly:
-             it is a copy), then timed with CUDA events beside its bound
-             and, where one PyTorch call computes the same function, that
-             call.
+             it is a copy), then timed beside its bound and, where one
+             PyTorch call computes the same function, that call: ``ms`` is
+             the per-call time of the wrapper (CUDA events over 200 calls),
+             ``device_ms`` the kernel's own time on the card (torch.profiler,
+             device time summed by kernel name over 50 calls, divided by the
+             launches).
 3. reference - the slice at a tiny size on the card against the same slice
              on the CPU (plain versions), same initial weights: once as
              PR 1's path, once with ELL tables, the dual-K split and the
@@ -39,7 +42,14 @@ and the script exits nonzero:
              evaluate; x must be bfloat16 and h float32, membership must
              launch exactly twice per frame group of each step, and one
              group is re-scored with membership routed to its plain version.
-7. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
+             Membership's launches by (rows, Kq, Ks) are printed
+             (``membership_shapes``), then one further batch is stepped
+             twice, timed and under torch.profiler: the card's busy share
+             of the step and its ten kernels with the most device time
+             (``step_profile``).
+7. membership_shapes - the membership kernel timed at each (rows, Kq, Ks)
+             that bench_slice launched.
+8. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
              at its full size (the three gather kernels of
              scripts/bench_gather.py on the card); each kernel must launch.
 
@@ -101,6 +111,23 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, pattern: str) -> dict:
+    """The kernel's own time on the card: torch.profiler's device time of
+    the kernels named like ``pattern`` over 50 calls, per launch, and the
+    launches the trace holds (it can miss the first few; more than 50
+    would mean a call launched the kernel twice)."""
+    from ocn_tpu_torch.utils import profiling
+
+    ms, launches = profiling.kernel_device_ms(fn, pattern)
+    if launches > 50:
+        raise AssertionError(f"{pattern}: {launches} launches in 50 calls")
+    return {"device_ms": ms, "device_launches": launches}
+
+
+MEMBERSHIP_KERNEL = r"membership_kernel"
+WINDOW_KERNEL = r"window_rows_kernel"
+
+
 def bound(nbytes: int, ops: int) -> dict:
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     t_ops = 1e3 * ops / PEAK_FP32_OPS_PER_S
@@ -146,14 +173,20 @@ def membership_checks(gen):
         membership_counts, membership_counts_plain)
 
     # (leading dims, Kq, Ks, id range, unit weights): cn1/cn2 at the train
-    # chunk, cn1 at a k2_dst of 16, the eval batch, a ragged B with many
-    # duplicate ids, and (B, R, K) leading dims
+    # chunk, cn1 at a k2_dst of 16, the eval batch, a frame group, a ragged
+    # B with many duplicate ids, (B, R, K) leading dims, Kq not a multiple
+    # of 4, Ks past one shared-memory tile, and Kq*Ks near 32,768
     cases = [
         ((4096,), 64, 64, 235868, False),
         ((4096,), 64, 16, 235868, False),
         ((65536,), 64, 64, 235868, False),
+        ((32768,), 16, 16, 235868, False),
         ((300,), 16, 32, 77, True),
         ((512, 8), 64, 16, 5000, True),
+        ((1001,), 3, 5, 7, True),
+        ((1001,), 1, 600, 40, True),
+        ((517,), 16, 2000, 300, True),
+        ((333,), 64, 500, 200, False),
     ]
     max_err = 0.0
     rows = []
@@ -171,18 +204,27 @@ def membership_checks(gen):
         max_err = max(max_err, err)
         rows.append({"shape": list(lead) + [kq, ks], "max_abs_err": err})
 
-    b, kq, ks = 4096, 64, 64
+    return rows, max_err, membership_timing(gen, 4096, 64, 64)
+
+
+def membership_timing(gen, b, kq, ks):
+    """membership_counts at (b, kq, ks): per call, on the card alone, the
+    plain version, and the bound."""
+    from ocn_tpu_torch.ops.membership import (
+        membership_counts, membership_counts_plain)
+
     q, ids, w = membership_inputs(gen, (b,), kq, ks, 235868, False)
-    timing = {"shape": [b, kq, ks],
-              "ms": cuda_time_ms(lambda: membership_counts(q, ids, w)),
-              "plain_ms": cuda_time_ms(lambda: membership_counts_plain(q, ids, w)),
-              # one compare and one add per (b, k, s)
-              **bound(b * (4 * kq + 8 * ks) + 4 * b * kq, 2 * b * kq * ks)}
-    return rows, max_err, timing
+    return {"shape": [b, kq, ks],
+            "ms": cuda_time_ms(lambda: membership_counts(q, ids, w)),
+            **device_ms(lambda: membership_counts(q, ids, w), MEMBERSHIP_KERNEL),
+            "plain_ms": cuda_time_ms(lambda: membership_counts_plain(q, ids, w)),
+            # one compare and one add per (b, k, s)
+            **bound(b * (4 * kq + 8 * ks) + 4 * b * kq, 2 * b * kq * ks)}
 
 
 def window_checks(gen):
     from ocn_tpu_torch.ops import window_gather as W
+    from ocn_tpu_torch.utils import profiling
 
     # the hoisted table of the full-width slice: one row per adjacency entry
     # (GATHER_PAD tail included), hidden 256, float32
@@ -190,27 +232,41 @@ def window_checks(gen):
     y = torch.randn((e, h), generator=gen, device="cuda")
     rows, max_err = [], 0.0
 
-    def check(y, b, k, label):
+    def check(y, b, k, label, itype=torch.int32):
         nonlocal max_err
         e = y.shape[0]
-        pos0 = torch.randint(0, max(e - k, 0) + 1, (b,), generator=gen,
-                             device="cuda", dtype=torch.int32)
-        pos0[0] = 0
-        pos0[-1] = max(e - k, 0)  # the last window's aligned start clamps
+        top = max(e - k, 0)
+        # int64 starts as ops/frame.py passes them: column 0 of the (B, K)
+        # window positions, a strided view
+        pos = torch.randint(0, top + 1, (b, 1), generator=gen, device="cuda",
+                            dtype=itype) + torch.arange(k, device="cuda",
+                                                        dtype=itype)
+        pos0 = pos[:, 0] if itype == torch.int64 else pos[:, 0].contiguous()
+        # the first row; the last start (its aligned start clamps to E - J);
+        # starts in the last 8 rows, where off != pos0 mod 8
+        edge = [0, top, max(top - 1, 0), max(top - 3, 0), max(top - 7, 0)]
+        pos0[:len(edge)] = torch.tensor(edge[:b], device="cuda", dtype=itype)
+        want, woff = W.window_rows_plain(y, pos0, k)
+        if not torch.equal(woff, W.aligned_starts(pos0, e, k)[1]):
+            raise AssertionError(f"window_rows {label}: plain offsets")
         got, goff = W.window_rows(y, pos0, k)
         torch.cuda.synchronize()
-        want, woff = W.window_rows_plain(y, pos0, k)
         err = (got.float() - want.float()).abs().max().item()
         # a copy: exact
         if not (torch.equal(got, want) and torch.equal(goff, woff)):
             raise AssertionError(f"window_rows {label}: differs from plain ({err})")
         max_err = max(max_err, err)
         rows.append({"case": label, "shape": [b, k + W.SLACK, y.shape[1]],
-                     "dtype": str(y.dtype), "max_abs_err": err})
+                     "dtype": str(y.dtype), "starts": str(itype),
+                     "max_abs_err": err})
 
-    # the train chunk's big and small bodies, and the eval batch
-    for b, k in ((4096, 64), (4096, 16), (65536, 64)):
-        check(y, b, k, f"B={b} K={k}")
+    # the train chunk's big and small bodies (int32 and strided int64
+    # starts), and the eval batch
+    for b, k, itype in ((4096, 64, torch.int32), (4096, 64, torch.int64),
+                        (4096, 16, torch.int32), (65536, 64, torch.int64)):
+        check(y, b, k, f"B={b} K={k}", itype)
+    # ten windows a table row
+    check(y[:20000], 200_000, 16, "B=200000", torch.int64)
     # ragged: E < J with an odd width (every window clamps, 4-byte units);
     # odd bfloat16 rows (2-byte units); odd byte rows; a table whose pointer
     # is 4 bytes off 16-byte alignment
@@ -222,11 +278,20 @@ def window_checks(gen):
     flat = torch.randn(2000 * 64 + 1, generator=gen, device="cuda")
     check(flat[1:].view(2000, 64), 300, 64, "unaligned pointer")
 
+    # the timed starts come from a generator of their own, so that the
+    # bound (which counts their distinct rows) stays put when checks change
+    tgen = torch.Generator(device="cuda").manual_seed(2)
     timings = []
     for b, k in ((4096, 64), (4096, 16)):
-        pos0 = torch.randint(0, e - k + 1, (b,), generator=gen, device="cuda",
+        pos0 = torch.randint(0, e - k + 1, (b,), generator=tgen, device="cuda",
                              dtype=torch.int32)
         timings.append(window_timing(y, pos0, k))
+    # a call is one device kernel: no start arithmetic around it
+    activities = profiling.profile_calls(lambda: W.window_rows(y, pos0, 16), 1)
+    if len(activities) != 1:
+        raise AssertionError(f"window_rows: {len(activities)} device activities "
+                             f"in one call: {[a[0][:60] for a in activities]}")
+    timings[0]["device_activities_per_call"] = len(activities)
     return rows, max_err, timings
 
 
@@ -243,11 +308,18 @@ def window_timing(y, pos0, k):
     idx = torch.clamp(p0a.long()[:, None]
                       + torch.arange(j, device="cuda"), max=e - 1).reshape(-1)
     rb = h * y.element_size()
+    src = y[:b * j]
+    dst = torch.empty_like(src)
     return {"shape": [b, j, h], "dtype": str(y.dtype),
             "ms": cuda_time_ms(lambda: W.window_rows(y, pos0, k)),
+            **device_ms(lambda: W.window_rows(y, pos0, k), WINDOW_KERNEL),
             "plain_ms": cuda_time_ms(lambda: W.window_rows_plain(y, pos0, k)),
             "library_ms": cuda_time_ms(lambda: torch.index_select(y, 0, idx)),
-            **bound(gather_bytes(distinct(idx), b * j, rb, 8 * b), 0)}
+            # a contiguous Tensor.copy_ of as many bytes, each read and
+            # written once: what a copy reaches on this card
+            "copy_ms": cuda_time_ms(lambda: dst.copy_(src)),
+            **bound(gather_bytes(distinct(idx), b * j, rb,
+                                 pos0.element_size() * b + 4 * b), 0)}
 
 
 def distinct(t: torch.Tensor) -> int:
@@ -317,6 +389,7 @@ def row_checks(gen, x, idx_np, srt_np):
     rb = h * x.element_size()
     timing = {"shape": [m, h], "dtype": str(x.dtype),
               "ms": cuda_time_ms(lambda: RG.row_rows(x, idx)),
+              **device_ms(lambda: RG.row_rows(x, idx), r"\brow_rows_kernel\b"),
               "plain_ms": cuda_time_ms(lambda: RG.row_rows_plain(x, idx)),
               "library_ms": cuda_time_ms(lambda: torch.index_select(x, 0, idx)),
               "sorted_ms": cuda_time_ms(lambda: RG.row_rows(x, idx_sorted)),
@@ -374,6 +447,8 @@ def sorted_block_checks(gen, x, srt_np, s):
     rb = h * x.element_size()
     timing = {"shape": [m, h], "ts": ts, "w": w, "dtype": str(x.dtype),
               "ms": cuda_time_ms(lambda: RG.sorted_block_rows(x, ids, bases, ts, w)),
+              **device_ms(lambda: RG.sorted_block_rows(x, ids, bases, ts, w),
+                          r"sorted_block_rows_kernel"),
               "plain_ms": cuda_time_ms(
                   lambda: RG.sorted_block_rows_plain(x, ids, bases, ts, w)),
               "library_ms": cuda_time_ms(lambda: torch.index_select(x, 0, ids)),
@@ -768,16 +843,20 @@ def phase_bench_slice(ds, **overrides):
     c = tr._chunk()
     groups = frame_groups(cfg, tr._split, c)
 
-    pos, neg, batches = step_batches(tr, ds)
+    # a fourth batch for the profiled step, after the checks
+    pos, neg, batches = step_batches(tr, ds, nsteps=4)
+    batches, profiled = batches[:3], batches[3]
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, per_step = [], [], []
+    membership_counts.shapes.clear()
     for idx in batches:
         membership_counts.launches = 0
         state, ms, loss = run_steps(tr, state, pos, neg, [idx], gen)
         per_step.append(membership_counts.launches)
         step_ms += ms
         losses += loss
+    shapes = dict(membership_counts.shapes)
     # one cn_frames call per group: cn1 and cn2 membership, at group rows
     if per_step != [2 * groups] * len(batches):
         raise AssertionError(f"membership launches per step {per_step}; "
@@ -819,6 +898,7 @@ def phase_bench_slice(ds, **overrides):
             frame.membership_counts = membership_counts
     score_err = (ks - ps).abs().max().item()
     torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-5)
+    step_profile = profile_step(tr, state, pos, neg, profiled, gen)
     emit({"phase": "bench_slice", "seconds": time.perf_counter() - t0,
           "trainer_init_s": t_trainer, "ell_refresh_s": refresh_s,
           "split": list(tr._split), "frame_group": grp,
@@ -826,11 +906,42 @@ def phase_bench_slice(ds, **overrides):
           "h_dtype": str(h_dtype), "step_ms": step_ms,
           "train_edges_per_s": [2e3 * cfg.batch_size / ms for ms in step_ms],
           "losses": losses, "membership_launches_per_step": per_step,
+          "membership_shapes": [[*shape, n] for shape, n in shapes.items()],
           "membership_launches_eval": eval_launches, "eval_s": t_eval,
           "hits": results, "group_score_max_abs_err": score_err,
           "peak_mem_train_gb": peak_train,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return sum(per_step) + eval_launches
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "step_profile": step_profile})
+    return sum(per_step) + eval_launches, shapes
+
+
+def profile_step(tr, state, pos, neg, idx, gen):
+    """One batch stepped twice: timed on the host clock, then under
+    torch.profiler, which gives the card's busy time (the union of its
+    kernels, copies and fills) and the ten kernels with the most device
+    time.  The profiler's host-side tracing slows the launches, so the busy
+    share is given against both steps: ``device_busy_share`` against the
+    untraced step, ``device_busy_share_traced`` against the traced one."""
+    from ocn_tpu_torch.utils import profiling
+
+    inputs = tr.prepare_batch(pos[:, idx], neg[:, idx], idx)
+
+    def step():
+        _, loss = tr.train_step(state, *inputs[:3], gen, *inputs[3:])
+        return loss.item()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    loss, out = profiling.profile_region(step, cuda=DEVICE == "cuda")
+    if not math.isfinite(loss):
+        raise AssertionError(f"profiled step: loss {loss}")
+    busy = out.pop("device_busy_share")
+    return {"loss": loss, "step_ms": step_ms,
+            "device_busy_share": (out["device_busy_ms"] / step_ms
+                                  if busy is not None else None),
+            "device_busy_share_traced": busy, **out}
 
 
 def phase_gather_bench(**sizes):
@@ -855,12 +966,23 @@ def phase_gather_bench(**sizes):
     return launches, out["variants"]
 
 
+def phase_membership_shapes(shapes):
+    """membership_counts timed at each (rows, Kq, Ks) that bench_slice
+    launched in its training steps."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timings = [membership_timing(gen, *shape) for shape in sorted(shapes)]
+    emit({"phase": "membership_shapes", "seconds": time.perf_counter() - t0,
+          "timings": timings})
+    return timings
+
+
 def kernel_entry(name, module, replaces, launches, err, timing, **extra):
     """One entry of the {"kernels": [...]} line."""
     return {"name": name, "route": "cuda", "source": module.SOURCE,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            **{key: timing[key] for key in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by")},
+            **{key: timing[key] for key in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by")},
             "library_ms": timing.get("library_ms"), "shape": timing.get("shape"),
             **extra}
 
@@ -887,9 +1009,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     w_train, w_eval = phase_window_slice(ds)
     torch.cuda.empty_cache()
-    b_launches = phase_bench_slice(ds)
+    b_launches, b_shapes = phase_bench_slice(ds)
     del ds
     torch.cuda.empty_cache()
+    m_grouped = phase_membership_shapes(b_shapes)
     g_launches, g_variants = phase_gather_bench()
 
     m_err, m_timing = kern["membership"]
@@ -898,7 +1021,8 @@ def main() -> int:
         kernel_entry("membership_counts", membership, membership.REPLACES,
                      m_launches, m_err, m_timing,
                      launches_window_slice=w_train["membership"] + w_eval["membership"],
-                     launches_bench_slice=b_launches),
+                     launches_bench_slice=b_launches,
+                     bench_slice_shapes=m_grouped),
         kernel_entry("window_rows", window_gather, window_gather.REPLACES,
                      w_train["window"] + w_eval["window"], w_err, w_timings[0],
                      launches_train=w_train["window"],

@@ -8,10 +8,12 @@ Port of the Pallas TPU kernel ocn_tpu/ops/pallas/membership.py
 launches ``csrc/membership.cu`` (built with nvcc for sm_90a on first use and
 bound with ctypes); on CPU tensors it runs ``membership_counts_plain``, the
 dense compare-and-sum.  A CUDA call launches the kernel or raises: there is
-no fallback.  ``membership_counts.launches`` counts kernel launches.
+no fallback.  ``membership_counts.launches`` counts kernel launches and
+``membership_counts.shapes`` counts them by (rows, Kq, Ks).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -85,7 +87,9 @@ def membership_counts(query: torch.Tensor, ids: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"membership kernel launch failed: CUDA error {err}")
     membership_counts.launches += 1
+    membership_counts.shapes[(rows, kq, ks)] += 1
     return out
 
 
 membership_counts.launches = 0
+membership_counts.shapes = collections.Counter()

@@ -15,8 +15,9 @@ kept so that rows and offsets equal the JAX function's element for element.
 
 On CUDA tensors ``window_rows`` launches ``csrc/window_gather.cu`` (built
 with nvcc for sm_90a on first use, bound with ctypes); on CPU tensors it runs
-``window_rows_plain``.  A CUDA call launches the kernel or raises: there is
-no fallback.  ``window_rows.launches`` counts kernel launches.
+``window_rows_plain``.  A CUDA call is exactly one device kernel, which also
+computes the aligned starts and writes the offsets; it launches or raises:
+there is no fallback.  ``window_rows.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -46,8 +47,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(build())
         lib.ocn_window_rows.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         lib.ocn_window_rows.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -77,7 +79,8 @@ def window_rows(y: torch.Tensor, pos0: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, J=k+SLACK, H) rows y[p0a[b] : p0a[b]+J] (clamped at the last row)
     and the (B,) int32 offsets of the true window starts.  y (E, H) of any
-    type, contiguous; pos0 (B,) integer window starts."""
+    type, contiguous; pos0 (B,) integer window starts >= 0, int32 or int64,
+    any stride."""
     devs = {y.device.type, pos0.device.type}
     if devs == {"cpu"}:
         return window_rows_plain(y, pos0, k)
@@ -95,17 +98,16 @@ def window_rows(y: torch.Tensor, pos0: torch.Tensor, k: int
     e, h = y.shape
     b = pos0.shape[0]
     j = k + SLACK
-    p0a, off = aligned_starts(pos0, e, k)
     rows = torch.empty((b, j, h), dtype=y.dtype, device=y.device)
-    if rows.numel() == 0:
-        return rows, off
+    if rows.numel() == 0:  # no rows to copy (B or H is 0)
+        return rows, aligned_starts(pos0, e, k)[1]
+    off = torch.empty((b,), dtype=torch.int32, device=y.device)
     if e == 0:
         raise ValueError("window_rows: empty table")
-    starts = p0a.long().contiguous()
     stream = torch.cuda.current_stream(y.device).cuda_stream
     err = _lib().ocn_window_rows(
-        y.data_ptr(), starts.data_ptr(), rows.data_ptr(), e,
-        h * y.element_size(), b, j, stream)
+        y.data_ptr(), pos0.data_ptr(), pos0.stride(0), pos0.element_size(),
+        rows.data_ptr(), off.data_ptr(), e, h * y.element_size(), b, j, stream)
     if err != 0:
         raise RuntimeError(f"window gather kernel launch failed: CUDA error {err}")
     window_rows.launches += 1

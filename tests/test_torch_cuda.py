@@ -21,6 +21,7 @@ from ocn_tpu_torch.scripts import bench_gather as G
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse.csr import graph_from_numpy
 from ocn_tpu_torch.train.loop import Trainer
+from ocn_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -42,17 +43,34 @@ def _inputs(rng, lead, kq, ks, n, unit_w):
 
 @pytest.mark.parametrize("lead,kq,ks,n,unit_w", [
     ((4096,), 64, 64, 235868, False),   # cn1/cn2 at the main-path chunk
+    ((32768,), 64, 64, 235868, False),  # a frame group of 8 chunks
     ((300,), 16, 32, 77, True),         # ragged rows, many duplicates
     ((64, 8), 64, 16, 500, True),       # (B, R, K) leading dims
     ((100,), 4, 1500, 50, False),       # Ks past one shared-memory tile
+    # Kq in {1, 3, 16, 64} by Ks in {1, 5, 16, 64, 600}, B not a multiple
+    # of a block's rows (256, 256, 64, 16), duplicates exact at unit weights
+    ((1001,), 1, 1, 3, True),
+    ((1001,), 1, 600, 40, True),
+    ((1001,), 3, 5, 7, True),
+    ((1001,), 3, 600, 100, False),
+    ((1001,), 16, 16, 20, True),
+    ((1001,), 16, 64, 50, False),
+    ((1001,), 64, 5, 9, True),
+    ((1001,), 64, 64, 80, True),
+    ((77, 5), 16, 600, 500, True),      # (B, R, K) with Ks past one tile
+    ((517,), 16, 2000, 300, True),      # Kq*Ks = 32,000, near the limit
+    ((333,), 64, 500, 200, False),      # Kq*Ks = 32,000 at Kq = 64
 ])
 def test_membership_kernel_matches_plain(cuda, lead, kq, ks, n, unit_w):
     q, ids, w = (torch.as_tensor(a, device=cuda) for a in
                  _inputs(np.random.default_rng(0), lead, kq, ks, n, unit_w))
     before = tm.membership_counts.launches
+    shape = (int(np.prod(lead)), kq, ks)
+    shapes_before = tm.membership_counts.shapes[shape]
     got = tm.membership_counts(q, ids, w)
     torch.cuda.synchronize()
     assert tm.membership_counts.launches == before + 1
+    assert tm.membership_counts.shapes[shape] == shapes_before + 1
     want = tm.membership_counts_plain(q, ids, w)
     if unit_w:  # sums of ones are exact
         assert torch.equal(got, want)
@@ -119,20 +137,39 @@ def test_train_steps_on_the_card_match_cpu(cuda):
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
-@pytest.mark.parametrize("e,h,b,k,dtype", [
-    (1_324_714, 256, 4096, 64, torch.float32),   # the train chunk, big body
-    (1_324_714, 256, 4096, 16, torch.float32),   # the small body
-    (1_324_714, 256, 65536, 64, torch.float32),  # the eval batch
-    (5, 7, 6, 4, torch.float32),                 # E < J: every window clamps
-    (1000, 33, 100, 16, torch.bfloat16),         # 2-byte units
-    (300, 13, 50, 8, torch.uint8),               # byte units
+def _window_starts(gen, e, b, k, itype, cuda):
+    """b window starts in [0, E - K] as ops/frame.py passes them (int64:
+    column 0 of the (B, K) positions, a strided view), with the edge cases
+    first: the first row, the last start (whose aligned start clamps to
+    E - J) and starts in the last 8 rows, where off != pos0 mod 8."""
+    top = max(e - k, 0)
+    pos = (torch.randint(0, top + 1, (b, 1), generator=gen, device=cuda,
+                         dtype=itype)
+           + torch.arange(k, device=cuda, dtype=itype))
+    pos0 = pos[:, 0] if itype == torch.int64 else pos[:, 0].contiguous()
+    edge = [0, top, max(top - 1, 0), max(top - 3, 0), max(top - 7, 0)][:b]
+    pos0[:len(edge)] = torch.tensor(edge, device=cuda, dtype=itype)
+    return pos0
+
+
+@pytest.mark.parametrize("e,h,b,k,dtype,itype", [
+    (1_324_714, 256, 4096, 64, torch.float32, torch.int32),   # the big body
+    (1_324_714, 256, 4096, 64, torch.float32, torch.int64),
+    (1_324_714, 256, 4096, 16, torch.float32, torch.int32),   # the small body
+    (1_324_714, 256, 4096, 16, torch.float32, torch.int64),
+    (1_324_714, 256, 65536, 64, torch.float32, torch.int64),  # the eval batch
+    (1_324_714, 256, 4096, 64, torch.bfloat16, torch.int32),  # gather_w
+    (1_324_714, 256, 4096, 16, torch.bfloat16, torch.int64),
+    (20000, 256, 200_000, 16, torch.float32, torch.int64),    # 10 windows a table row
+    (5, 7, 6, 4, torch.float32, torch.int32),    # E < J: every window clamps
+    (5, 256, 6, 4, torch.float32, torch.int64),  # E < J at 16-byte rows
+    (1000, 33, 100, 16, torch.bfloat16, torch.int32),  # 2-byte units
+    (300, 13, 50, 8, torch.uint8, torch.int64),        # byte units
 ])
-def test_window_rows_kernel_matches_plain(cuda, e, h, b, k, dtype):
+def test_window_rows_kernel_matches_plain(cuda, e, h, b, k, dtype, itype):
     gen = torch.Generator(device=cuda).manual_seed(e + k)
     y = torch.randn((e, h), generator=gen, device=cuda).to(dtype)
-    pos0 = torch.randint(0, max(e - k, 0) + 1, (b,), generator=gen,
-                         device=cuda, dtype=torch.int32)
-    pos0[-1] = max(e - k, 0)
+    pos0 = _window_starts(gen, e, b, k, itype, cuda)
     before = tw.window_rows.launches
     rows, off = tw.window_rows(y, pos0, k)
     torch.cuda.synchronize()
@@ -140,6 +177,22 @@ def test_window_rows_kernel_matches_plain(cuda, e, h, b, k, dtype):
     want, want_off = tw.window_rows_plain(y, pos0, k)
     assert rows.shape == (b, k + tw.SLACK, h)
     assert torch.equal(rows, want) and torch.equal(off, want_off)  # a copy
+    assert off.dtype == torch.int32
+    assert torch.equal(off, tw.aligned_starts(pos0, e, k)[1])
+
+
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64])
+def test_window_rows_is_one_device_kernel(cuda, itype):
+    """A call on the card is one device kernel: the start arithmetic runs
+    in it, and the strided int64 starts are read as given."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    y = torch.randn((100_000, 256), generator=gen, device=cuda)
+    pos0 = _window_starts(gen, 100_000, 4096, 64, itype, cuda)
+    call = lambda: tw.window_rows(y, pos0, 64)  # noqa: E731
+    call()  # the library is built and loaded outside the profile
+    torch.cuda.synchronize()
+    activities = profiling.profile_calls(call, 1)
+    assert ["window_rows_kernel" in name for name, _, _ in activities] == [True]
 
 
 def test_window_rows_unaligned_table(cuda):
@@ -149,6 +202,9 @@ def test_window_rows_unaligned_table(cuda):
     rows, off = tw.window_rows(y, pos0, 32)
     want, want_off = tw.window_rows_plain(y, pos0, 32)
     assert torch.equal(rows, want) and torch.equal(off, want_off)
+    # still one kernel, on 4-byte units
+    activities = profiling.profile_calls(lambda: tw.window_rows(y, pos0, 32), 1)
+    assert ["window_rows_kernel" in n for n, _, _ in activities] == [True]
 
 
 def test_window_rows_wrapper_rejects(cuda):

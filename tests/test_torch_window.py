@@ -48,6 +48,31 @@ def test_window_rows_plain_matches(e, h, b, k):
     assert ((off >= 0) & (off <= W.SLACK)).all()
 
 
+@pytest.mark.parametrize("e,k", [
+    (300, 16),    # starts up to E - K: the last 8 rows clamp to E - J
+    (1003, 64),   # E - J not a multiple of 8
+    (5, 4),       # E < J: every aligned start is 0
+    (24, 16),     # E == J
+])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_aligned_starts_edges_match(e, k, dtype):
+    """The arithmetic the CUDA kernel now does itself, held against the
+    JAX function at its edges: every start in [0, 16) and in the last 16
+    rows below E - K."""
+    top = max(e - k, 0)
+    pos0 = np.unique(np.r_[np.arange(16), np.arange(top - 15, top + 1)]
+                     .clip(0, top)).astype(dtype)
+    want = JW.aligned_starts(jnp.asarray(pos0), e, k)
+    got = W.aligned_starts(torch.as_tensor(pos0), e, k)
+    for g, w_ in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    p0a, off = (g.numpy() for g in got)
+    hi = max(e - k - W.SLACK, 0)
+    assert ((p0a % 8 == 0) | (p0a == hi)).all() and (p0a <= hi).all()
+    assert ((off >= 0) & (off <= W.SLACK)).all()
+
+
 def test_pad_vals_matches():
     rng = np.random.default_rng(0)
     p, b, k = 2, 30, 12
