@@ -17,10 +17,12 @@ and the script exits nonzero:
              ``device_ms`` the kernel's own time on the card (torch.profiler,
              device time summed by kernel name over 50 calls, divided by the
              launches).
-3. reference - the slice at a tiny size on the card against the same slice
-             on the CPU (plain versions), same initial weights: once as
-             PR 1's path, once with ELL tables, the dual-K split and the
-             window table.
+3. reference - the slices at a tiny size on the card against the same
+             slices on the CPU (plain versions), same initial weights: the plain
+             path, the window path with ELL tables and the dual-K split,
+             the grouped bfloat16 program, then two steps each of cn7 (also
+             with the window table), cn8, cn9, cn1, cn6 (A^3 table, dual-K)
+             and hoisted cn5, losses, Hits and eval scores compared.
 4. slice   - the main path at full width: synthetic collab (scale 1.0,
              BFS-relabelled), the 3-layer gcn encoder with LN/res/JK at
              hidden 256, cn5 with pad_deg 64 / pad_deg2 64 and the host A^2
@@ -47,19 +49,39 @@ and the script exits nonzero:
              twice, timed and under torch.profiler: the card's busy share
              of the step and its ten kernels with the most device time
              (``step_profile``).
-7. membership_shapes - the membership kernel timed at each (rows, Kq, Ks)
-             that bench_slice launched.
-8. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
+7. ocnp_slice - the reference README's collab OCNP command,
+             presets("collab", "cn7"): 1-layer gin with res at hidden 256,
+             testbs 131072, the valid edges as input for the test split,
+             ELL tables and k_small 16.  Three steps and one evaluate;
+             membership exactly twice per chunk; one small-body and one
+             big-body chunk re-scored with the plain version.
+8. cn6_slice - bench.py's program with OCN_BENCH_PREDICTOR=cn6: the host
+             A^3 build (seconds, nnz), its ELL table, three steps and one
+             evaluate, membership exactly three times per chunk, two chunks
+             re-scored with the plain version.
+9. hoist_slice - bench.py's program with OCN_BENCH_HOIST=1 (cn5): three
+             steps and one evaluate, membership exactly twice a step at
+             2 * 65536 rows, the step's one group re-scored.
+10. variants_slice - bench.py's program with cn1, cn8 and cn9: one step
+             and one evaluate each.
+11. membership_shapes - the membership kernel at each (rows, Kq, Ks) that
+             phases 6-10 launched: exact against its plain version with unit
+             weights, then timed beside its bound.
+12. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
              at its full size (the three gather kernels of
              scripts/bench_gather.py on the card); each kernel must launch.
 
-Phase 2 also holds the row gather, the sorted-block gather and the window
-gather at bfloat16 against their plain versions, exactly, at the
-instrument's shapes and at ragged ones.
+Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits,
+its membership launches (per step, in eval, by shape) and peak device
+memory (train and eval apart where both run).  Phase 2 also holds the row
+gather, the sorted-block gather and the window gather at bfloat16 against
+their plain versions, exactly, at the instrument's shapes and at ragged
+ones.
 
-The line before the last is {"kernels": [...]}, then the nvidia-smi line,
-and the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
-or outside the repository, it exits nonzero and prints no result.
+The third line from the end is {"kernels": [...]}, the next one the
+nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Without a
+CUDA device, or outside the repository, it exits nonzero and prints no
+result.
 """
 import collections
 import dataclasses
@@ -91,6 +113,14 @@ WINDOW_PATH = dict(ell_tables=True, ell_refresh=1, ell_eval=True, k_small=16,
 # ELL tables and k_small, and leave the window table off
 BENCH_PATH = dict(WINDOW_PATH, window_table=False, frame_group=8,
                   dtype="bfloat16")
+# bench.py's program with OCN_BENCH_PREDICTOR=cn6 (bench.py:102): cn6 is
+# never grouped, though its split still rounds to whole groups of 8
+CN6_PATH = dict(BENCH_PATH, predictor="cn6")
+# and with OCN_BENCH_HOIST=1 (bench.py:99): the frames of the whole step in
+# one build, which turns the dual-K split off
+HOIST_PATH = dict(BENCH_PATH, hoist_frames=True)
+# the predictors variants_slice drives on bench.py's program
+VARIANTS = ("cn1", "cn8", "cn9")
 
 
 def emit(obj) -> None:
@@ -500,13 +530,16 @@ def phase_kernels():
 
 
 def phase_reference():
-    """The slice at a tiny size, card against CPU, from the same weights:
-    PR 1's path (no frame cap binds, so no random stream is read), then the
+    """The slices at a tiny size, card against CPU, from the same weights:
+    the plain path (no frame cap binds, so no random stream is read), then the
     window-table path with ELL tables and the dual-K split (capped rows ride
     the tables, whose offsets come from NumPy, so again no stream is read),
     then bench.py's grouped bfloat16 program on the tables: frame_group 2
     over a split that the group rounding moves (4 + 3 chunks become 3 + 3)
-    and bfloat16 features."""
+    and bfloat16 features; three epochs each.  Then, two steps each (one
+    epoch), the new predictors on the tables with the dual-K split: cn7
+    (also with the window table), cn8, cn9, cn1, cn6 (with its A^3 table),
+    and hoisted cn5; their valid-edge scores are compared too."""
     from ocn_tpu_torch.config import Config
     from ocn_tpu_torch.data.loaders import synthetic_dataset
     from ocn_tpu_torch.ops import window_gather as W
@@ -525,16 +558,29 @@ def phase_reference():
     grouped = dataclasses.replace(
         window, window_table=False, frame_group=2, dtype="bfloat16",
         small_frac=0.5, small_frac_neg=0.375)
+    # an epoch is two steps of 8 + 8 chunks
+    tables = dataclasses.replace(window, window_table=False, batch_size=512,
+                                 linkbatchsize=64)
+    cases = [("plain", base, 3), ("window", window, 3), ("grouped", grouped, 3),
+             ("cn7", dataclasses.replace(tables, predictor="cn7", sum=27.29), 1),
+             ("cn7_window", dataclasses.replace(tables, predictor="cn7",
+                                                window_table=True), 1),
+             ("cn8", dataclasses.replace(tables, predictor="cn8"), 1),
+             ("cn9", dataclasses.replace(tables, predictor="cn9", polyfirst=3), 1),
+             ("cn1", dataclasses.replace(tables, predictor="cn1"), 1),
+             ("cn6", dataclasses.replace(tables, predictor="cn6"), 1),
+             ("hoisted_cn5", dataclasses.replace(tables, hoist_frames=True), 1)]
+    valid = ds.split_edge["valid"]["edge"]
     out = {"phase": "reference"}
-    for name, cfg in (("plain", base), ("window", window), ("grouped", grouped)):
-        losses, hits = {}, {}
+    for name, cfg, epochs in cases:
+        losses, hits, scores = {}, {}, {}
         for dev in ("cpu", DEVICE):
             tr = Trainer(cfg, ds, device=dev)
             if name == "plain" and (int(tr.g.deg.max()) > cfg.pad_deg
                                     or int(tr.adj2.deg.max()) > cfg.pad_deg2):
                 raise AssertionError("reference graph exceeds the frame caps")
-            if name == "window" and not (tr._use_ell and tr._split):
-                raise AssertionError("window reference: tables or split off")
+            if name in ("window", "cn6") and not (tr._use_ell and tr._split):
+                raise AssertionError(f"{name} reference: tables or split off")
             if name == "grouped" and (tr._split != (3, 3)
                                       or tr.x.dtype != torch.bfloat16):
                 raise AssertionError(f"grouped reference: split {tr._split}, "
@@ -542,12 +588,21 @@ def phase_reference():
             state = tr.init_state(0)
             rng = np.random.default_rng(0)
             W.window_rows.launches = 0
-            losses[dev] = [tr.train_epoch(state, rng, ep)[1] for ep in (1, 2, 3)]
+            losses[dev] = [tr.train_epoch(state, rng, ep)[1]
+                           for ep in range(1, epochs + 1)]
             hits[dev] = tr.evaluate(state)["Hits@50"]
-            if name == "window" and dev != "cpu" and W.window_rows.launches == 0:
-                raise AssertionError("window reference: the kernel never ran")
+            if epochs == 1:
+                g, a2 = tr._eval_graphs()
+                scores[dev] = tr._score_split(state, tr.encode(state), g, valid, a2)
+            if name.endswith("window") and dev != "cpu" and W.window_rows.launches == 0:
+                raise AssertionError(f"{name} reference: the kernel never ran")
         np.testing.assert_allclose(losses[DEVICE], losses["cpu"], rtol=1e-4)
         np.testing.assert_allclose(hits[DEVICE], hits["cpu"], rtol=1e-4)
+        if scores:
+            # scores of order 1 after two Adam steps taken from float32 sums
+            # in another order on each side
+            np.testing.assert_allclose(scores[DEVICE], scores["cpu"],
+                                       rtol=1e-4, atol=1e-4)
         prefix = "" if name == "plain" else f"{name}_"
         out.update({f"{prefix}loss_cpu": losses["cpu"],
                     f"{prefix}loss_cuda": losses[DEVICE],
@@ -609,13 +664,11 @@ def check_hits(results):
 
 
 def phase_slice(ds, t_data, **overrides):
-    """PR 1's path at full width.  ``overrides`` of slice_config shrink
-    this phase and the next, and DEVICE moves them, for the rehearsal on
-    the CPU in tests/test_torch_chip_smoke.py."""
-    import ocn_tpu_torch.ops.frame as frame
+    """The plain path at full width.  ``overrides`` of slice_config shrink
+    this phase and the next ones, and DEVICE moves them, for the rehearsal
+    on the CPU in tests/test_torch_chip_smoke.py."""
     from ocn_tpu_torch.ops import window_gather as W
-    from ocn_tpu_torch.ops.membership import (
-        membership_counts, membership_counts_plain)
+    from ocn_tpu_torch.ops.membership import membership_counts
     from ocn_tpu_torch.train.loop import Trainer
 
     t0 = time.perf_counter()
@@ -648,31 +701,8 @@ def phase_slice(ds, t_data, **overrides):
 
     # the last step's first positive and negative chunks, eval mode, scored
     # with the kernel and with membership routed to its plain version
-    c = tr._chunk()
-    pe, ne, mp, _, _ = tr.prepare_batch(pos[:, batches[-1]], neg[:, batches[-1]],
-                                        batches[-1])
-    g = tr.g.mask_edges(mp)
-    with torch.no_grad():
-        h = tr.encode(state)
-        valid = torch.ones(c, device=DEVICE)
-
-        def chunk_scores():
-            state.predictor.eval()
-            ps = tr._score_chunk(state, h, g, pe[:, :c], valid, None, False,
-                                 tr.adj2, corr=valid)
-            ns = tr._score_chunk(state, h, g, ne[:, :c], valid, None, False,
-                                 tr.adj2)
-            return ps, ns, tr._loss(ps, ns).item()
-
-        kp, kn, k_loss = chunk_scores()
-        frame.membership_counts = membership_counts_plain
-        try:
-            pp, pn, p_loss = chunk_scores()
-        finally:
-            frame.membership_counts = membership_counts
-    score_err = max((kp - pp).abs().max().item(), (kn - pn).abs().max().item())
-    torch.testing.assert_close(kp, pp, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(kn, pn, rtol=1e-5, atol=1e-5)
+    score_err = rescore(tr, state, pos, neg, batches[-1], lambda pe, ne, c: [
+        (pe[:, :c], 1, None), (ne[:, :c], 1, None)], 2)
     emit({"phase": "slice", "seconds": time.perf_counter() - t0,
           "data_s": t_data, "trainer_init_s": t_trainer,
           "adj2_host_build_s": tr.adj2_seconds,
@@ -684,15 +714,13 @@ def phase_slice(ds, t_data, **overrides):
           "membership_launches_train": train_launches,
           "membership_launches_total": launches,
           "window_launches_total": window_launches, "eval_s": t_eval,
-          "hits": results, "chunk_loss_kernel": k_loss,
-          "chunk_loss_plain": p_loss, "chunk_score_max_abs_err": score_err,
+          "hits": results, "chunk_score_max_abs_err": score_err,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return launches
 
 
 def phase_window_slice(ds, **overrides):
     """The window-table path at full width."""
-    import ocn_tpu_torch.ops.frame as frame
     from ocn_tpu_torch.ops import window_gather as W
     from ocn_tpu_torch.ops.membership import membership_counts
     from ocn_tpu_torch.train.loop import Trainer
@@ -710,38 +738,34 @@ def phase_window_slice(ds, **overrides):
     torch.cuda.synchronize()
     refresh_s = time.perf_counter() - t1
 
-    # membership launches by query width: Kq = k_small in the small body
-    by_kq = collections.Counter()
-    real_membership = frame.membership_counts
-
-    def tally(q, *args):
-        by_kq[str(q.shape[-1])] += 1
-        return real_membership(q, *args)
+    def by_kq():
+        # membership launches by query width: Kq = k_small in the small body
+        out = collections.Counter()
+        for (_, kq, _), n in membership_counts.shapes.items():
+            out[str(kq)] += n
+        return dict(out)
 
     pos, neg, batches = step_batches(tr, ds)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
-    frame.membership_counts = tally
-    try:
-        membership_counts.launches = 0
-        W.window_rows.launches = 0
-        state, step_ms, losses = run_steps(tr, state, pos, neg, batches, gen)
-        train = {"window": W.window_rows.launches,
-                 "membership": membership_counts.launches,
-                 "membership_by_kq": dict(by_kq)}
-        peak_train = torch.cuda.max_memory_allocated() / 1e9
-        by_kq.clear()
-        membership_counts.launches = 0
-        W.window_rows.launches = 0
-        te = time.perf_counter()
-        results = tr.evaluate(state)
-        torch.cuda.synchronize()
-        t_eval = time.perf_counter() - te
-        evals = {"window": W.window_rows.launches,
-                 "membership": membership_counts.launches,
-                 "membership_by_kq": dict(by_kq)}
-    finally:
-        frame.membership_counts = real_membership
+    membership_counts.launches = 0
+    membership_counts.shapes.clear()
+    W.window_rows.launches = 0
+    state, step_ms, losses = run_steps(tr, state, pos, neg, batches, gen)
+    train = {"window": W.window_rows.launches,
+             "membership": membership_counts.launches,
+             "membership_by_kq": by_kq()}
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    membership_counts.launches = 0
+    membership_counts.shapes.clear()
+    W.window_rows.launches = 0
+    te = time.perf_counter()
+    results = tr.evaluate(state)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - te
+    evals = {"window": W.window_rows.launches,
+             "membership": membership_counts.launches,
+             "membership_by_kq": by_kq()}
     check_hits(results)
     chunks_per_step = 2 * cfg.batch_size // tr._chunk()
     if train["window"] < chunks_per_step * len(batches):
@@ -818,9 +842,6 @@ def frame_groups(cfg, split, chunk):
 def phase_bench_slice(ds, **overrides):
     """bench.py's own program at full width: grouped frames and bfloat16
     features on the ELL tables and the dual-K split."""
-    import ocn_tpu_torch.ops.frame as frame
-    from ocn_tpu_torch.ops.membership import (
-        membership_counts, membership_counts_plain)
     from ocn_tpu_torch.train.loop import Trainer
 
     t0 = time.perf_counter()
@@ -840,79 +861,33 @@ def phase_bench_slice(ds, **overrides):
     # bfloat16 features, float32 everything after the first Dense
     if tr.x.dtype != torch.bfloat16 or h_dtype != torch.float32:
         raise AssertionError(f"bench slice: x {tr.x.dtype}, h {h_dtype}")
-    c = tr._chunk()
-    groups = frame_groups(cfg, tr._split, c)
+    groups = frame_groups(cfg, tr._split, tr._chunk())
 
     # a fourth batch for the profiled step, after the checks
     pos, neg, batches = step_batches(tr, ds, nsteps=4)
     batches, profiled = batches[:3], batches[3]
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, losses, per_step = [], [], []
-    membership_counts.shapes.clear()
-    for idx in batches:
-        membership_counts.launches = 0
-        state, ms, loss = run_steps(tr, state, pos, neg, [idx], gen)
-        per_step.append(membership_counts.launches)
-        step_ms += ms
-        losses += loss
-    shapes = dict(membership_counts.shapes)
+    state, train, shapes = drive_steps(tr, state, pos, neg, batches, gen)
     # one cn_frames call per group: cn1 and cn2 membership, at group rows
-    if per_step != [2 * groups] * len(batches):
-        raise AssertionError(f"membership launches per step {per_step}; "
-                             f"expected {2 * groups} ({groups} groups)")
-    peak_train = torch.cuda.max_memory_allocated() / 1e9
-    membership_counts.launches = 0
-    te = time.perf_counter()
-    results = tr.evaluate(state)
-    torch.cuda.synchronize()
-    t_eval = time.perf_counter() - te
-    eval_launches = membership_counts.launches
-    check_hits(results)
-
-    # the last step's first small-body group, eval mode, scored with the
-    # kernel and with membership routed to its plain version
+    expect_launches("bench_slice", train["membership_launches_per_step"],
+                    [2 * groups] * len(batches))
+    evals, _ = timed_eval(tr, state)
+    # the last step's first small-body group, eval mode, re-scored with
+    # membership routed to its plain version
     grp = cfg.frame_group
-    pe, ne, mp, _, _ = tr.prepare_batch(pos[:, batches[-1]], neg[:, batches[-1]],
-                                        batches[-1])
-    g = tr._masked_graph(mp)
-    adj2 = tr._local_adj2(mp)
-    with torch.no_grad():
-        h = tr.encode(state)
-        valid = torch.ones(grp * c, dtype=tr.dtype, device=DEVICE)
-
-        def group_scores():
-            state.predictor.eval()
-            return tr._score_chunk(state, h, g, pe[:, :grp * c], valid, None,
-                                   False, adj2, corr=valid, k=cfg.k_small,
-                                   grp=grp)
-
-        before = membership_counts.launches
-        ks = group_scores()
-        if membership_counts.launches != before + 2:
-            raise AssertionError("the re-scored group did not launch membership twice")
-        frame.membership_counts = membership_counts_plain
-        try:
-            ps = group_scores()
-        finally:
-            frame.membership_counts = membership_counts
-    score_err = (ks - ps).abs().max().item()
-    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-5)
+    err = rescore(tr, state, pos, neg, batches[-1], lambda pe, ne, c: [
+        (pe[:, :grp * c], grp, cfg.k_small)], 2)
     step_profile = profile_step(tr, state, pos, neg, profiled, gen)
     emit({"phase": "bench_slice", "seconds": time.perf_counter() - t0,
           "trainer_init_s": t_trainer, "ell_refresh_s": refresh_s,
           "split": list(tr._split), "frame_group": grp,
           "groups_per_step": groups, "x_dtype": str(tr.x.dtype),
-          "h_dtype": str(h_dtype), "step_ms": step_ms,
-          "train_edges_per_s": [2e3 * cfg.batch_size / ms for ms in step_ms],
-          "losses": losses, "membership_launches_per_step": per_step,
-          "membership_shapes": [[*shape, n] for shape, n in shapes.items()],
-          "membership_launches_eval": eval_launches, "eval_s": t_eval,
-          "hits": results, "group_score_max_abs_err": score_err,
-          "peak_mem_train_gb": peak_train,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "h_dtype": str(h_dtype), **train, **evals,
+          "group_score_max_abs_err": err,
+          "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"]),
           "step_profile": step_profile})
-    return sum(per_step) + eval_launches, shapes
+    return (sum(train["membership_launches_per_step"])
+            + evals["membership_launches_eval"]), shapes
 
 
 def profile_step(tr, state, pos, neg, idx, gen):
@@ -944,6 +919,260 @@ def profile_step(tr, state, pos, neg, idx, gen):
             "device_busy_share_traced": busy, **out}
 
 
+def shape_list(counter):
+    """A membership shape counter as [[rows, Kq, Ks, launches], ...]."""
+    return [[*shape, n] for shape, n in sorted(counter.items())]
+
+
+def drive_steps(tr, state, pos, neg, batches, gen):
+    """Timed training steps one at a time, membership launches counted per
+    step and by (rows, Kq, Ks); returns (state, record, shapes)."""
+    from ocn_tpu_torch.ops.membership import membership_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    membership_counts.shapes.clear()
+    step_ms, losses, per_step = [], [], []
+    for idx in batches:
+        membership_counts.launches = 0
+        state, ms, loss = run_steps(tr, state, pos, neg, [idx], gen)
+        per_step.append(membership_counts.launches)
+        step_ms += ms
+        losses += loss
+    shapes = collections.Counter(membership_counts.shapes)
+    return state, {
+        "step_ms": step_ms,
+        "train_edges_per_s": [2e3 * tr.cfg.batch_size / ms for ms in step_ms],
+        "losses": losses, "membership_launches_per_step": per_step,
+        "membership_shapes_train": shape_list(shapes),
+        "peak_mem_train_gb": torch.cuda.max_memory_allocated() / 1e9}, shapes
+
+
+def timed_eval(tr, state):
+    """One Trainer.evaluate, timed, its membership launches counted and its
+    peak device memory apart from the training's; returns (record,
+    shapes)."""
+    from ocn_tpu_torch.ops.membership import membership_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    membership_counts.launches = 0
+    membership_counts.shapes.clear()
+    te = time.perf_counter()
+    results = tr.evaluate(state)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - te
+    check_hits(results)
+    shapes = collections.Counter(membership_counts.shapes)
+    return {"eval_s": t_eval, "hits": results,
+            "membership_launches_eval": membership_counts.launches,
+            "membership_shapes_eval": shape_list(shapes),
+            "peak_mem_eval_gb": torch.cuda.max_memory_allocated() / 1e9}, shapes
+
+
+def rescore(tr, state, pos, neg, idx, cases, per_group):
+    """Score link groups of one prepared batch in eval mode twice, with
+    membership on the kernel and routed to its plain version, and hold the
+    scores together (rtol/atol 1e-5).  ``cases(pe, ne, chunk)`` lists the
+    groups as (edges, chunks in the group, frame width or None); each group
+    must launch membership ``per_group`` times."""
+    import ocn_tpu_torch.ops.frame as frame
+    from ocn_tpu_torch.ops.membership import (
+        membership_counts, membership_counts_plain)
+
+    pe, ne, mp, _, _ = tr.prepare_batch(pos[:, idx], neg[:, idx], idx)
+    g = tr._masked_graph(mp)
+    adj2, adj3 = tr._local_adj2(mp), tr._local_adj3(mp)
+    c = tr._chunk()
+    groups = cases(pe, ne, c)
+    with torch.no_grad():
+        h = tr.encode(state)
+        y = h[g.col] if tr.cfg.window_table else None
+
+        def scores():
+            state.predictor.eval()
+            out = []
+            for edges, grp, k in groups:
+                valid = torch.ones(edges.shape[1], dtype=tr.dtype, device=DEVICE)
+                out.append(tr._score_chunk(state, h, g, edges, valid, None,
+                                           False, adj2, y=y, k=k, grp=grp,
+                                           adj3=adj3))
+            return out
+
+        before = membership_counts.launches
+        kern = scores()
+        launched = membership_counts.launches - before
+        if launched != per_group * len(groups):
+            raise AssertionError(f"re-scored groups launched membership "
+                                 f"{launched} times, expected "
+                                 f"{per_group * len(groups)}")
+        frame.membership_counts = membership_counts_plain
+        try:
+            plain = scores()
+        finally:
+            frame.membership_counts = membership_counts
+    for a, b in zip(kern, plain):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    return max((a - b).abs().max().item() for a, b in zip(kern, plain))
+
+
+def expect_launches(phase, got, want):
+    if got != want:
+        raise AssertionError(f"{phase}: membership launches per step {got}, "
+                             f"expected {want}")
+
+
+def with_valid_edges(ds):
+    """The dataset with its train+valid graph, as loaddataset builds it for
+    use_valedges_as_input."""
+    from ocn_tpu_torch.sparse import build as B
+
+    full = np.concatenate([ds.edge_index, ds.split_edge["valid"]["edge"].T], 1)
+    return dataclasses.replace(
+        ds, full_edge_index=B.symmetrize_edge_index(full, ds.n_nodes))
+
+
+def phase_ocnp_slice(ds, nsteps=3, **overrides):
+    """The reference README's collab OCNP command at full width:
+    presets("collab", "cn7"), a 1-layer gin encoder with res at hidden 256,
+    gnnedp 0.25, batch 65536 in chunks of 4096, testbs 131072, maskinput,
+    the valid edges as input for the test split, ELL tables and k_small 16.
+    Exactly two membership launches per chunk; one small-body and one
+    big-body chunk re-scored with the plain version."""
+    from ocn_tpu_torch.config import presets
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg = presets("collab", "cn7", **overrides)
+    tr = Trainer(cfg, with_valid_edges(ds), device=DEVICE)
+    state = tr.init_state(0)
+    if not (tr._use_ell and tr._split) or tr.full_g is tr.g:
+        raise AssertionError(f"ocnp slice: tables {tr._use_ell}, split "
+                             f"{tr._split}, full graph {tr.full_g is not tr.g}")
+    tr._refresh_ell(np.random.default_rng(1))
+    torch.cuda.synchronize()
+    t_trainer = time.perf_counter() - t0
+    pos, neg, batches = step_batches(tr, ds, nsteps)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state, train, shapes = drive_steps(tr, state, pos, neg, batches, gen)
+    chunks = 2 * cfg.batch_size // tr._chunk()
+    expect_launches("ocnp_slice", train["membership_launches_per_step"],
+                    [2 * chunks] * nsteps)
+    evals, eval_shapes = timed_eval(tr, state)
+    nsp, _ = tr._split
+    err = rescore(tr, state, pos, neg, batches[-1], lambda pe, ne, c: [
+        (pe[:, :c], 1, cfg.k_small), (pe[:, nsp * c:(nsp + 1) * c], 1, None)], 2)
+    emit({"phase": "ocnp_slice", "seconds": time.perf_counter() - t0,
+          "trainer_init_s": t_trainer, "split": list(tr._split),
+          "config": {k: getattr(cfg, k) for k in (
+              "model", "mplayers", "hiddim", "res", "jk", "gnnedp", "sum",
+              "batch_size", "testbs", "k_small", "use_valedges_as_input")},
+          **train, **evals, "chunk_score_max_abs_err": err,
+          "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"])})
+    return train, evals, shapes + eval_shapes
+
+
+def phase_cn6_slice(ds, nsteps=3, **overrides):
+    """bench.py's program with OCN_BENCH_PREDICTOR=cn6 at full width: the
+    host A^3 = A^2 @ A capped at adj3_cap, its ELL table tbl3, three
+    membership launches per chunk (cn1, cn2, cn3), one small-body and one
+    big-body chunk re-scored with the plain version."""
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg = slice_config(**{**CN6_PATH, **overrides})
+    tr = Trainer(cfg, ds, device=DEVICE)
+    state = tr.init_state(0)
+    if not (tr._use_ell and tr._split) or tr.adj3.packed is None:
+        raise AssertionError(f"cn6 slice: tables {tr._use_ell}, split "
+                             f"{tr._split}, A^3 packed {tr.adj3.packed is not None}")
+    tr._refresh_ell(np.random.default_rng(1))
+    torch.cuda.synchronize()
+    t_trainer = time.perf_counter() - t0
+    pos, neg, batches = step_batches(tr, ds, nsteps)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state, train, shapes = drive_steps(tr, state, pos, neg, batches, gen)
+    chunks = 2 * cfg.batch_size // tr._chunk()
+    expect_launches("cn6_slice", train["membership_launches_per_step"],
+                    [3 * chunks] * nsteps)
+    evals, eval_shapes = timed_eval(tr, state)
+    nsp, _ = tr._split
+    err = rescore(tr, state, pos, neg, batches[-1], lambda pe, ne, c: [
+        (pe[:, :c], 1, cfg.k_small), (pe[:, nsp * c:(nsp + 1) * c], 1, None)], 3)
+    emit({"phase": "cn6_slice", "seconds": time.perf_counter() - t0,
+          "trainer_init_s": t_trainer, "adj2_host_build_s": tr.adj2_seconds,
+          "adj3_host_build_s": tr.adj3_seconds,
+          "adj3_nnz": int(tr.adj3.indptr[-1]), "k3": tr._k3_width(),
+          "adj3_max_deg": int(tr.adj3.deg.max()), "split": list(tr._split),
+          **train, **evals, "chunk_score_max_abs_err": err,
+          "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"])})
+    return train, evals, shapes + eval_shapes
+
+
+def phase_hoist_slice(ds, nsteps=3, **overrides):
+    """bench.py's program with OCN_BENCH_HOIST=1 (cn5): one frame build of
+    all 2 * batch_size links a step, so exactly two membership launches a
+    step at 131072 rows; the whole step's group re-scored with the plain
+    version."""
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg = slice_config(**{**HOIST_PATH, **overrides})
+    tr = Trainer(cfg, ds, device=DEVICE)
+    state = tr.init_state(0)
+    if tr._split is not None or not tr._use_ell:
+        raise AssertionError(f"hoist slice: split {tr._split}, tables {tr._use_ell}")
+    tr._refresh_ell(np.random.default_rng(1))
+    torch.cuda.synchronize()
+    t_trainer = time.perf_counter() - t0
+    pos, neg, batches = step_batches(tr, ds, nsteps)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state, train, shapes = drive_steps(tr, state, pos, neg, batches, gen)
+    expect_launches("hoist_slice", train["membership_launches_per_step"],
+                    [2] * nsteps)
+    rows = 2 * cfg.batch_size
+    if set(shapes) != {(rows, cfg.pad_deg, cfg.pad_deg2)}:
+        raise AssertionError(f"hoist slice: membership shapes {dict(shapes)}")
+    evals, eval_shapes = timed_eval(tr, state)
+    err = rescore(tr, state, pos, neg, batches[-1], lambda pe, ne, c: [
+        (torch.cat([pe, ne], 1), rows // c, None)], 2)
+    emit({"phase": "hoist_slice", "seconds": time.perf_counter() - t0,
+          "trainer_init_s": t_trainer, **train, **evals,
+          "group_score_max_abs_err": err,
+          "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"])})
+    return train, evals, shapes + eval_shapes
+
+
+def phase_variants_slice(ds, **overrides):
+    """bench.py's program with OCN_BENCH_PREDICTOR = cn1, cn8 and cn9: one
+    step and one evaluate each (cn1 and cn9 carry two (n_nodes, hidden)
+    one-hot weights)."""
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    out, launches, shapes = {}, 0, collections.Counter()
+    pos = neg = batches = None
+    for name in VARIANTS:
+        cfg = slice_config(**{**BENCH_PATH, "predictor": name, **overrides})
+        tr = Trainer(cfg, ds, device=DEVICE)
+        state = tr.init_state(0)
+        tr._refresh_ell(np.random.default_rng(1))
+        if batches is None:
+            pos, neg, batches = step_batches(tr, ds, 1)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        state, train, s_train = drive_steps(tr, state, pos, neg, batches, gen)
+        evals, s_eval = timed_eval(tr, state)
+        launches += sum(train["membership_launches_per_step"])
+        launches += evals["membership_launches_eval"]
+        shapes += s_train + s_eval
+        out[name] = {
+            "parameters": sum(p.numel() for p in state.predictor.parameters()),
+            **train, **evals,
+            "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"])}
+        del tr, state
+        torch.cuda.empty_cache()
+    emit({"phase": "variants_slice", "seconds": time.perf_counter() - t0, **out})
+    return launches, shapes
+
+
 def phase_gather_bench(**sizes):
     """The row-gather instrument; ``sizes`` shrink it for the rehearsal."""
     from ocn_tpu_torch.ops import row_gather as RG
@@ -967,11 +1196,22 @@ def phase_gather_bench(**sizes):
 
 
 def phase_membership_shapes(shapes):
-    """membership_counts timed at each (rows, Kq, Ks) that bench_slice
-    launched in its training steps."""
+    """membership_counts at each (rows, Kq, Ks) that the model phases
+    launched in their steps and evals: exact against its plain version with
+    unit weights (duplicate ids included), then timed."""
+    from ocn_tpu_torch.ops.membership import (
+        membership_counts, membership_counts_plain)
+
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    timings = [membership_timing(gen, *shape) for shape in sorted(shapes)]
+    timings = []
+    for b, kq, ks in sorted(shapes):
+        q, ids, w = membership_inputs(gen, (b,), kq, ks, 300, True)
+        got = membership_counts(q, ids, w)
+        torch.cuda.synchronize()
+        exact(f"membership ({b}, {kq}, {ks})", got, membership_counts_plain(q, ids, w))
+        timings.append({**membership_timing(gen, b, kq, ks), "exact_unit_w": True,
+                        "launches": shapes[(b, kq, ks)]})
     emit({"phase": "membership_shapes", "seconds": time.perf_counter() - t0,
           "timings": timings})
     return timings
@@ -1009,10 +1249,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     w_train, w_eval = phase_window_slice(ds)
     torch.cuda.empty_cache()
-    b_launches, b_shapes = phase_bench_slice(ds)
+    b_launches, shapes = phase_bench_slice(ds)
+    torch.cuda.empty_cache()
+    # the new paths, each read with the counts set to 0 just before it
+    new = {}
+    for name, phase in (("ocnp_slice", phase_ocnp_slice),
+                        ("cn6_slice", phase_cn6_slice),
+                        ("hoist_slice", phase_hoist_slice)):
+        train, evals, phase_shapes = phase(ds)
+        new[name] = (sum(train["membership_launches_per_step"])
+                     + evals["membership_launches_eval"])
+        shapes = shapes + phase_shapes
+        torch.cuda.empty_cache()
+    new["variants_slice"], phase_shapes = phase_variants_slice(ds)
+    shapes = shapes + phase_shapes
     del ds
     torch.cuda.empty_cache()
-    m_grouped = phase_membership_shapes(b_shapes)
+    m_shapes = phase_membership_shapes(shapes)
     g_launches, g_variants = phase_gather_bench()
 
     m_err, m_timing = kern["membership"]
@@ -1022,7 +1275,8 @@ def main() -> int:
                      m_launches, m_err, m_timing,
                      launches_window_slice=w_train["membership"] + w_eval["membership"],
                      launches_bench_slice=b_launches,
-                     bench_slice_shapes=m_grouped),
+                     **{f"launches_{name}": n for name, n in new.items()},
+                     model_shapes=m_shapes),
         kernel_entry("window_rows", window_gather, window_gather.REPLACES,
                      w_train["window"] + w_eval["window"], w_err, w_timings[0],
                      launches_train=w_train["window"],

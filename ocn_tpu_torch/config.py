@@ -462,11 +462,11 @@ def require_supported(cfg: Config) -> None:
     """Raise NotImplementedError naming the first field whose value this
     slice of the port does not implement."""
     unsupported = (
-        ("hoist_frames", cfg.hoist_frames, "hoisted frame builds"),
         ("cndeg", cfg.cndeg > 0, "CN-set degree caps"),
         ("two_hop_mode", cfg.two_hop_mode == "sddmm", "on-the-fly A^2 counts"),
         ("encoder_stack", cfg.encoder_stack == "ho", "the pygho encoder stack"),
-        ("predictor", cfg.predictor != "cn5", "predictors other than cn5"),
+        ("predictor", cfg.predictor in ("cn2", "cn3", "cn4"),
+         "the incomplete-CN family"),
         ("dp_devices", cfg.dp_devices * cfg.tp_devices > 1, "multi-device meshes"),
         ("graph_sharding", cfg.graph_sharding == "node", "node-sharded graphs"),
     )

@@ -1,5 +1,5 @@
-"""Candidate-frame common-neighbor extraction (port of ocn_tpu/ops/frame.py,
-the cn5 main-path subset).
+"""Candidate-frame common-neighbor extraction (port of ocn_tpu/ops/frame.py:
+the frames of the frame-based predictors cn1 and cn5-cn9).
 
 For a batch of target edges (i, j) the candidate common neighbors are the
 degree-capped, padded-to-K neighbor list of i.  Every CN matrix of the
@@ -15,8 +15,10 @@ value.  The membership lookups run through ops/membership.py and the
 window-table frame matmul through ops/window_gather.py (the CUDA kernels on
 the card).
 
-Not ported yet: the iid sampler, lane DropAdj, the SDDMM two-hop path and
-cn3/residual frames.
+cn6's third frame (``cn3_frame``) reads a precomputed A^3 the same way.
+
+Not ported yet: the iid sampler, lane DropAdj, the SDDMM two-hop path of
+cn_frames and the residual frames of the incomplete family.
 """
 from __future__ import annotations
 
@@ -397,3 +399,44 @@ def cn_frames(
     cn2_val = torch.where(src.w != 0, src.w * base, 0.0)
     cn2 = CNFrame(ids=src.ids, val=cn2_val, n_nodes=g.n_nodes)
     return (cn1, cn2, src) if with_src else (cn1, cn2)
+
+
+def cn3_frame(g: Graph, tar_ei: torch.Tensor, src: NeighborFrame, k2: int,
+              k3: int, chunk: int = 256, counts: bool = False,
+              adj3: Optional[Graph] = None) -> CNFrame:
+    """3-hop CN frame on the candidate frame ``src`` (N(i)): cn3[b, k] != 0
+    iff candidate k has A^3[j_b, k] > 0 (its path count with ``counts``).
+
+    With ``adj3`` (the row-capped host A^3 = A^2 @ A): one row gather of A^3
+    at j, k2 wide (from its ELL table when one is attached, else the first
+    k2 entries of a capped row), and one membership lookup, as cn2 does
+    against A^2.  A^3 gets no maskinput correction: third-order paths through
+    the removed target edge are left in, as in the JAX package.
+
+    Without it: A^3[j, k] = sum over m in N(k) of |N(m) & N(j)|, computed in
+    chunks of ``chunk`` edges with caps k2 (candidate and dst lists) and k3
+    (second-hop lists), first-k windows of capped rows; the test oracle."""
+    if adj3 is not None:
+        a3row = gather_neighbors(adj3, tar_ei[1], k2)
+        counts3 = _rowwise_membership(src.ids, a3row.ids, a3row.w)
+    else:
+        b, k = src.ids.shape
+        dstf = gather_neighbors(g, tar_ei[1], k2)
+        # sentinel candidates gather the last row; their lanes carry weight 0
+        cand = torch.clamp(src.ids, max=g.n_nodes - 1)
+        parts = []
+        for s in range(0, b, chunk):
+            c = min(chunk, b - s)
+            nbr = gather_neighbors(g, cand[s:s + c].reshape(-1), k2)
+            nbr2 = gather_neighbors(
+                g, torch.clamp(nbr.ids, max=g.n_nodes - 1).reshape(-1), k3)
+            n2_ids = nbr2.ids.reshape(c, k * k2 * k3)
+            n2_w = (nbr2.w.reshape(c, k, k2, k3)
+                    * nbr.w.reshape(c, k, k2, 1)).reshape(c, k * k2 * k3)
+            m = _rowwise_membership(n2_ids, dstf.ids[s:s + c], dstf.w[s:s + c])
+            contrib = torch.where(m != 0, n2_w, 0.0)
+            parts.append(contrib.reshape(c, k, k2 * k3).sum(-1))
+        counts3 = torch.cat(parts)
+    base = counts3 if counts else (counts3 > 0).float()
+    val = torch.where(src.w != 0, src.w * base, 0.0)
+    return CNFrame(ids=src.ids, val=val, n_nodes=g.n_nodes)

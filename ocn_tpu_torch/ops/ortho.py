@@ -1,5 +1,6 @@
 """Column normalization + Gram-Schmidt orthogonalization of CN frames (port
-of ocn_tpu/ops/ortho.py, the cn5 pipeline).
+of ocn_tpu/ops/ortho.py: cn5's and cn1's ``orthogonalize``, cn6's
+``orthogonalize3``).
 
 The quirks of the reference math are kept on purpose:
 
@@ -109,3 +110,77 @@ def orthogonalize(
     es_o = es2u - nip * (inv1 * es1u)
     inv2 = 1.0 / torch.where(es_o == 0, 1.0, es_o)
     return ncn1, cn2.with_values(val_o * inv2), new_ema, new_n
+
+
+def orthogonalize3(
+    cn1: CNFrame,
+    cn2: CNFrame,
+    cn3: CNFrame,
+    ema: torch.Tensor,
+    n: torch.Tensor,
+    training: bool,
+    empty_fill: float = 0.0,
+    fidx: Optional[FrameIndex] = None,
+) -> Tuple[CNFrame, CNFrame, CNFrame, torch.Tensor, torch.Tensor]:
+    """cn6's double Gram-Schmidt: quirk-normalize cn1, project cn2 off it
+    and renormalize, then project cn3 off both and renormalize.  Returns
+    (ncn1, ocn2, ocn3, new_ema, new_n).
+
+    The reference's shared-EMA quirk is kept: the three inner products step
+    ONE running mean in turn (n advances by 3 per training call), both cn3
+    projections divide by max|ncn1|, and both cn3 coefficients read the
+    buffer after the third step (nip1 == nip2).
+
+    With ``fidx`` one five-plane ``entry_col_sum_multi`` gives every column
+    sum; the post-projection sums follow as
+
+        colsum(cn2 - nip0*ncn1)             = es2u - nip0*inv1*es1u  (es_o2)
+        colsum(cn3 - nip1*ncn1 - nip2*ocn2) = es3u - nip1*inv1*es1u3
+                                                   - nip2*inv2*es_o2
+
+    with the planes masked by the raw unions so the gradients equal the
+    direct path's.  Without ``fidx`` the direct path (the oracle) runs."""
+    if fidx is None:
+        ncn1 = colnorm_quirk(cn1, empty_fill)
+        scale = torch.max(torch.abs(ncn1.val))
+        inner0, ema, n = ema_inner_product(cn2, ncn1, ema, n, training)
+        nip0 = torch.where(scale > 0, inner0 / scale, inner0)
+        ocn2 = colnorm_plain(cn2.with_values(torch.where(
+            cn2.mask | ncn1.mask, cn2.val - nip0 * ncn1.val, 0.0)))
+        _, ema, n = ema_inner_product(cn3, ncn1, ema, n, training)
+        inner2, ema, n = ema_inner_product(cn3, ocn2, ema, n, training)
+        nip = torch.where(scale > 0, inner2 / scale, inner2)
+        union3 = cn3.mask | ncn1.mask | ocn2.mask
+        ocn3 = colnorm_plain(cn3.with_values(torch.where(
+            union3, cn3.val - nip * ncn1.val - nip * ocn2.val, 0.0)))
+        return ncn1, ocn2, ocn3, ema, n
+    u2 = (cn1.val != 0) | (cn2.val != 0)
+    u3 = u2 | (cn3.val != 0)
+    es = entry_col_sum_multi(
+        torch.stack([cn1.val, torch.where(u2, cn2.val, 0.0),
+                     torch.where(u2, cn1.val, 0.0),
+                     torch.where(u3, cn3.val, 0.0),
+                     torch.where(u3, cn1.val, 0.0)]),
+        fidx.perm, fidx.rank, fidx.rank_inv)
+    es1, es2u, es1u, es3u, es1u3 = es.unbind(0)
+    s_rep = torch.where(es1 == 0, 1.0, es1)
+    inv1 = torch.where(s_rep != 1, 1.0 / s_rep, empty_fill)
+    ncn1 = cn1.with_values(cn1.val * inv1)
+    scale = torch.max(torch.abs(ncn1.val))
+    # cn2 off ncn1
+    inner0, ema, n = ema_inner_product(cn2, ncn1, ema, n, training)
+    nip0 = torch.where(scale > 0, inner0 / scale, inner0)
+    val_o2 = torch.where(cn2.mask | ncn1.mask, cn2.val - nip0 * ncn1.val, 0.0)
+    es_o2 = es2u - nip0 * (inv1 * es1u)
+    inv2 = 1.0 / torch.where(es_o2 == 0, 1.0, es_o2)
+    ocn2 = cn2.with_values(val_o2 * inv2)
+    # cn3 off ncn1 and ocn2; both coefficients read the buffer after the
+    # third step
+    _, ema, n = ema_inner_product(cn3, ncn1, ema, n, training)
+    inner2, ema, n = ema_inner_product(cn3, ocn2, ema, n, training)
+    nip = torch.where(scale > 0, inner2 / scale, inner2)
+    union3 = cn3.mask | ncn1.mask | ocn2.mask
+    val_o3 = torch.where(union3, cn3.val - nip * ncn1.val - nip * ocn2.val, 0.0)
+    es_o3 = es3u - nip * (inv1 * es1u3) - nip * (inv2 * es_o2)
+    inv3 = 1.0 / torch.where(es_o3 == 0, 1.0, es_o3)
+    return ncn1, ocn2, cn3.with_values(val_o3 * inv3), ema, n

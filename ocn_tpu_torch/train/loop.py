@@ -1,4 +1,5 @@
-"""Training/eval engine (port of ocn_tpu/train/loop.py, the cn5 main path).
+"""Training/eval engine (port of ocn_tpu/train/loop.py for the frame-based
+predictors cn1 and cn5-cn9).
 
 One training step:
 
@@ -12,7 +13,7 @@ One training step:
 * the loss over all chunks is backpropagated once and a two-group Adam
   (gnnlr for the encoder, prelr for the predictor) takes a step.
 
-Four layout options of the JAX package are ported:
+Five layout options of the JAX package are ported:
 
 * ELL tables (``ell_tables``): each epoch freezes the window offsets of the
   capped rows in (N, K) tables of g and A^2 (sparse/ell.py), rebuilt on the
@@ -27,7 +28,15 @@ Four layout options of the JAX package are ported:
   window-gather kernel (ops/window_gather.py);
 * grouped frames (``frame_group`` > 1): each body's chunks are scored in
   groups whose frames one cn_frames call builds (``_score_chunk``); the
-  predictor still runs per chunk.  Eval is never grouped.
+  predictor still runs per chunk.  Eval is never grouped;
+* hoisted frames (``hoist_frames``): the frames of the whole step, all
+  2*batch_size links, in one cn_frames call, i.e. one frame group of every
+  chunk of the step (it turns the dual-K split off).
+
+cn6 (THREE_HOP) adds a third frame from A^3 = A^2 @ A, built once on the
+host and capped at adj3_cap per row, with its own ELL table (``tbl3``,
+k3 wide); it is never grouped or hoisted, though the dual-K split still
+rounds its small body to whole frame groups, as in the JAX package.
 
 ``dtype="bfloat16"`` keeps the node features and the valid/correction
 planes in bfloat16; the first Dense promotes to float32 (nn/mlp.py), so
@@ -37,8 +46,8 @@ Randomness (dropout, DropAdj, window offsets of capped rows off the tables)
 comes from one ``torch.Generator`` per epoch, seeded from the host NumPy
 generator that also draws the batch permutation and negatives, exactly as
 ocn_tpu draws its PRNG key; the ELL offsets come from a NumPy generator
-derived from the epoch number.  Not ported yet: hoisted frames, meshes
-(Config.require_supported).
+derived from the epoch number.  Not ported yet: the incomplete family
+(cn2/cn3/cn4), meshes (Config.require_supported).
 """
 from __future__ import annotations
 
@@ -53,8 +62,8 @@ import torch
 from ocn_tpu_torch.config import Config, require_supported
 from ocn_tpu_torch.data.loaders import LinkDataset
 from ocn_tpu_torch.nn.encoder import GCNEncoder
-from ocn_tpu_torch.nn.predictors import build_predictor
-from ocn_tpu_torch.ops.frame import CNFrame, cn_frames
+from ocn_tpu_torch.nn.predictors import THREE_HOP, build_predictor
+from ocn_tpu_torch.ops.frame import CNFrame, cn3_frame, cn_frames
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse import ell as ELL
 from ocn_tpu_torch.sparse.csr import Graph, graph_from_numpy
@@ -134,10 +143,18 @@ class Trainer:
         # precomputed A^2 for the "gather" two-hop mode: one host SpGEMM per
         # graph instead of the reference's per-batch SpGEMM
         t0 = time.perf_counter()
-        self.adj2 = self._build_adj2(g_host)
+        self.adj2 = self._build_adj2(g_host, keep_host=cfg.predictor in THREE_HOP)
         self.full_adj2 = (self._build_adj2(full_host) if full_host is not None
                           else self.adj2)
         self.adj2_seconds = time.perf_counter() - t0
+        # cn6: A^3 = A^2 @ A once per (train) graph, so its 3-hop counts are
+        # one row gather and one membership lookup per chunk
+        self.adj3 = None
+        self.adj3_seconds = 0.0
+        if cfg.predictor in THREE_HOP:
+            t0 = time.perf_counter()
+            self.adj3 = self._build_adj3(g_host)
+            self.adj3_seconds = time.perf_counter() - t0
 
         # maskinput: train-edge -> nnz position map, once per dataset
         self.train_edges = np.asarray(ds.split_edge["train"]["edge"]).T  # (2, E)
@@ -155,18 +172,41 @@ class Trainer:
         self._use_ell = bool(cfg.ell_tables and self.g.packed is not None
                              and self.adj2.packed is not None)
 
-    def _build_adj2(self, g: Graph) -> Graph:
+    def _build_adj2(self, g: Graph, keep_host: bool = False) -> Graph:
         ip = g.indptr.numpy()
         col = g.col.numpy()[: int(ip[-1])]
         ip2, col2, val2 = B.adj2_csr(ip, col, g.n_nodes, cap=self.cfg.adj2_cap)
+        if keep_host:  # the host CSR feeds cn6's A^3 SpGEMM
+            self._adj2_host = (ip2, col2, val2)
         # consumed only through packed window gathers: upload indptr/deg/
         # packed alone (4 bytes per entry)
         return graph_from_numpy(ip2, col2, g.n_nodes, val2,
                                 gather_only=True).to(self.device)
 
+    def _build_adj3(self, g: Graph) -> Graph:
+        """The row-capped A^3 = A^2 @ A (host SpGEMM, capped at adj3_cap),
+        gather-only on the device like A^2."""
+        ip = g.indptr.numpy()
+        col = g.col.numpy()[: int(ip[-1])]
+        ip2, col2, val2 = self._adj2_host
+        del self._adj2_host
+        n2 = int(ip2[-1])
+        ip3, col3, val3 = B.spgemm_csr(ip2, col2[:n2], val2[:n2], ip, col, None,
+                                       g.n_nodes, cap=self.cfg.adj3_cap)
+        return graph_from_numpy(ip3, col3, g.n_nodes, val3,
+                                gather_only=True).to(self.device)
+
+    def _k3_width(self) -> int:
+        """Width of cn6's A^3 row gather and of its ELL table: Config.k3, or
+        min(pad_deg2, 16)."""
+        if self.cfg.k3 > 0:
+            return self.cfg.k3
+        return min(self.cfg.pad_deg2, 16)
+
     def _refresh_ell(self, rng: np.random.Generator) -> None:
-        """Re-draw the frozen window offsets on the host and rebuild both
-        ELL tables (g at pad_deg, A^2 at pad_deg2) on the device."""
+        """Re-draw the frozen window offsets on the host and rebuild the
+        ELL tables (g at pad_deg, A^2 at pad_deg2, cn6's A^3 at k3, whose
+        offsets are drawn last) on the device."""
         cfg = self.cfg
         off1 = ELL.draw_offsets(self._deg_np, cfg.pad_deg, rng)
         off2 = ELL.draw_offsets(self.adj2.deg.cpu().numpy(), cfg.pad_deg2, rng)
@@ -178,6 +218,14 @@ class Trainer:
             tbl2=ELL.build_ell(self.adj2.packed, self.adj2.indptr, o2,
                                cfg.pad_deg2),
             off2=o2)
+        if self.adj3 is not None:
+            k3 = self._k3_width()
+            o3 = torch.as_tensor(
+                ELL.draw_offsets(self.adj3.deg.cpu().numpy(), k3, rng),
+                device=self.device)
+            self._ell.update(
+                tbl3=ELL.build_ell(self.adj3.packed, self.adj3.indptr, o3, k3),
+                off3=o3)
 
     def _split_plan(self) -> Optional[Tuple[int, int]]:
         """Chunk counts (n_small_pos, n_small_neg) of the dual-K split, or
@@ -230,6 +278,7 @@ class Trainer:
             noinputlin=cfg.loadx)
         encoder.reset_parameters(gen)
         predictor = build_predictor(cfg.predictor, cfg.hiddim, cfg.hiddim,
+                                    n_nodes=self.ds.n_nodes,
                                     **cfg.predictor_kwargs())
         predictor.reset_parameters(gen)
         encoder.to(self.device)
@@ -248,7 +297,8 @@ class Trainer:
 
     def _score_chunk(self, state: TrainState, h, g: Graph, edges, valid, gen,
                      training: bool, adj2: Graph, corr=None, y=None,
-                     k: Optional[int] = None, grp: int = 1) -> torch.Tensor:
+                     k: Optional[int] = None, grp: int = 1,
+                     adj3: Optional[Graph] = None) -> torch.Tensor:
         """Score ``grp`` chunks of C links, (2, grp*C) edges; returns
         (grp*C,) scores.  ``corr``: (grp*C,) maskinput self-path correction
         (1 for positive train edges whose (i, j) was just masked out).  In
@@ -256,9 +306,10 @@ class Trainer:
         first-k window).  ``y``: the window table h.detach()[g.col] (the
         frame matmul then reads the candidate frame's CSR windows of it).
         ``k``: candidate-frame width (the dual-K small body), default
-        pad_deg.
+        pad_deg.  ``adj3``: cn6's A^3 (its third frame, cn3_frame).
 
-        ``grp`` > 1 is the port of _scan_scores_grouped: one cn_frames call
+        ``grp`` > 1 is the port of _scan_scores_grouped (and, a group of
+        every chunk of the step, of _scan_scores_hoisted): one cn_frames call
         builds the frames of the whole group (two membership launches at
         grp*C rows), then the predictor runs once per chunk on its row
         slice, so column normalisation stays per chunk and the EMA advances
@@ -272,16 +323,21 @@ class Trainer:
             adj2=adj2, self_corr=corr, k2_dst=cfg.pad_deg2_dst,
             cn2_counts=cfg.cn2_counts, exact_two_hop=cfg.exact_two_hop,
             with_src=True)
+        vals = [cn1.val, cn2.val]
+        if cfg.predictor in THREE_HOP:
+            # cn3 shares the candidate frame src of cn1 and cn2
+            k3 = self._k3_width()
+            vals.append(cn3_frame(g, edges, src, k2=k3, k3=k3,
+                                  counts=cfg.cn2_counts, adj3=adj3).val)
         # padded/invalid edges must not pollute batch column sums / EMA
-        v1 = cn1.val * valid[:, None]
-        v2 = cn2.val * valid[:, None]
+        vals = [v * valid[:, None] for v in vals]
         c = edges.shape[1] // grp
         outs = []
         for j in range(grp):
             sl = slice(j * c, (j + 1) * c)
+            frames = [CNFrame(cn1.ids[sl], v[sl], g.n_nodes) for v in vals]
             out = state.predictor(
-                h, g.n_nodes, CNFrame(cn1.ids[sl], v1[sl], g.n_nodes),
-                CNFrame(cn2.ids[sl], v2[sl], g.n_nodes), edges[:, sl],
+                h, g.n_nodes, *frames, edges[:, sl],
                 gen if training else None, y=y,
                 pos=src.pos[sl] if y is not None else None)
             outs.append(out.reshape(-1))
@@ -318,6 +374,14 @@ class Trainer:
                                       mask_positions["off2"])
         return self.adj2
 
+    def _local_adj3(self, mask_positions) -> Optional[Graph]:
+        """cn6's A^3 of one step: no maskinput edit either, its gathers ride
+        the ELL table when the tables are on."""
+        if self.adj3 is not None and isinstance(mask_positions, dict):
+            return self.adj3.with_ell(mask_positions["ell3"],
+                                      mask_positions["off3"])
+        return self.adj3
+
     def step_loss(self, state: TrainState, pos: torch.Tensor, neg: torch.Tensor,
                   mask_positions, gen: torch.Generator,
                   inv_p: Optional[torch.Tensor] = None,
@@ -326,7 +390,9 @@ class Trainer:
         encoder over the masked graph, then every positive chunk and every
         negative chunk in order (with the dual-K split: the small body's
         positive and negative chunks, then the big body's), in frame groups
-        of up to frame_group chunks.  Steps the predictor's EMA buffers."""
+        of up to frame_group chunks, or with hoist_frames in one group of
+        them all (cn6 is never grouped).  Steps the predictor's EMA
+        buffers."""
         cfg = self.cfg
         c = self._chunk()
         b = pos.shape[1]
@@ -337,6 +403,7 @@ class Trainer:
                              "the step inputs with Trainer.prepare_batch")
         g = self._masked_graph(mask_positions)
         adj2 = self._local_adj2(mask_positions)
+        adj3 = self._local_adj3(mask_positions)
         state.encoder.train()
         state.predictor.train()
         h = state.encoder(self.x, g, gen)
@@ -346,9 +413,15 @@ class Trainer:
 
         def score(edges, n_pos, k=None):
             # (2, n*c) edges, the first n_pos chunks positive, scored in
-            # groups of _group_size(n, frame_group) chunks
+            # groups of _group_size(n, frame_group) chunks, or hoisted: one
+            # group of all n
             n = edges.shape[1] // c
-            grp = _group_size(n, cfg.frame_group)
+            if cfg.predictor in THREE_HOP:
+                grp = 1
+            elif cfg.hoist_frames:
+                grp = max(n, 1)
+            else:
+                grp = _group_size(n, cfg.frame_group)
             valid = torch.ones(grp * c, dtype=self.dtype, device=self.device)
             out = []
             for i in range(0, n, grp):
@@ -360,7 +433,7 @@ class Trainer:
                         [valid[:npos * c], torch.zeros_like(valid[npos * c:])])
                 out.append(self._score_chunk(
                     state, h, g, edges[:, i * c:(i + grp) * c], valid, gen,
-                    True, adj2, corr=corr, y=y, k=k, grp=grp))
+                    True, adj2, corr=corr, y=y, k=k, grp=grp, adj3=adj3))
             return torch.cat(out) if out else h.new_zeros(0)
 
         if split is None:
@@ -428,6 +501,8 @@ class Trainer:
             ell = self._ell
             aux = {"csr": mp, "ell1": ell["tbl1"], "off1": ell["off1"],
                    "ell2": ell["tbl2"], "off2": ell["off2"]}
+            if "tbl3" in ell:  # cn6's A^3 table
+                aux.update(ell3=ell["tbl3"], off3=ell["off3"])
             if mp_np is not None:
                 flat, cleared = ELL.mask_ell_flat_positions(
                     pos_b, mp_np, self._indptr_np, ell["off1_np"],
@@ -508,6 +583,7 @@ class Trainer:
         # built from the graph being scored (full_g for the test split
         # under use_valedges_as_input)
         y = h[g.col] if self.cfg.window_table else None
+        adj3 = self._eval_adj3()
         out = []
         n = edges.shape[0]
         for start in range(0, n, bs):
@@ -524,7 +600,7 @@ class Trainer:
             s = self._score_chunk(
                 state, h, g, torch.as_tensor(chunk, dtype=torch.int64,
                                              device=self.device),
-                valid, gen, False, adj2, y=y, k=k)
+                valid, gen, False, adj2, y=y, k=k, adj3=adj3)
             out.append(s[:c].cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
 
@@ -564,6 +640,14 @@ class Trainer:
             return (self.g.with_ell(self._ell["tbl1"], self._ell["off1"]),
                     self.adj2.with_ell(self._ell["tbl2"], self._ell["off2"]))
         return self.g, self.adj2
+
+    def _eval_adj3(self) -> Optional[Graph]:
+        """cn6's A^3 for eval: the train graph's, on every split (the
+        train+valid graph has none), with its ELL table when ``ell_eval``."""
+        if (self.adj3 is not None and self.cfg.ell_eval and self._use_ell
+                and self._ell is not None):
+            return self.adj3.with_ell(self._ell["tbl3"], self._ell["off3"])
+        return self.adj3
 
     def evaluate(self, state: TrainState) -> Dict[str, Tuple[float, float, float]]:
         """Score train / valid / test positives against the valid / test

@@ -96,7 +96,7 @@ def test_bench_and_gather_phases_on_cpu(on_cpu, capsys):
     assert sum(shapes.values()) == 12
     assert {rows for rows, _, _ in shapes} == {8 * 128}
     assert {kq for _, kq, _ in shapes} == {16, 64}
-    assert bench["membership_shapes"] == [[*s, n] for s, n in shapes.items()]
+    assert bench["membership_shapes_train"] == [[*s, n] for s, n in sorted(shapes.items())]
     # the profiled step: host tracing only here, no device numbers
     prof = bench["step_profile"]
     assert np.isfinite(prof["loss"]) and prof["window_ms"] > 0
@@ -106,6 +106,47 @@ def test_bench_and_gather_phases_on_cpu(on_cpu, capsys):
     assert g_launches == {"row_rows": 4, "sorted_block_rows": 2, "window_rows": 2}
     assert set(variants) == {"xla", "xla_sorted", "pallas", "pallas_srt",
                              "window_xla", "window_dma", "onehot_mxu"}
+
+
+def test_new_path_phases_on_cpu(on_cpu, capsys):
+    """The OCNP preset, cn6 with its A^3 table, hoisted frames and the
+    variants, each with the launch counts the card run asserts: 16 + 16
+    chunks a step, two membership lookups a chunk for cn7, three for cn6,
+    two a step when hoisted (at 2 * 1024 rows)."""
+    ds = synthetic_dataset("collab", seed=0, scale=0.01).reorder_bfs()
+    o_train, o_eval, o_shapes = chip_smoke.phase_ocnp_slice(ds, **TINY)
+    c_train, c_eval, c_shapes = chip_smoke.phase_cn6_slice(ds, **TINY)
+    h_train, h_eval, h_shapes = chip_smoke.phase_hoist_slice(ds, **TINY)
+    v_launches, v_shapes = chip_smoke.phase_variants_slice(ds, **TINY)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [line["phase"] for line in lines] == [
+        "ocnp_slice", "cn6_slice", "hoist_slice", "variants_slice"]
+    ocnp, cn6, hoist, variants = lines
+    assert o_train["membership_launches_per_step"] == [32] * 3
+    assert c_train["membership_launches_per_step"] == [48] * 3
+    assert h_train["membership_launches_per_step"] == [2] * 3
+    assert h_train["membership_shapes_train"] == [[2048, 64, 64, 6]]
+    # the small body queries at k_small = 16, cn6's third lookup against
+    # k3 = 16 lanes of A^3
+    assert {tuple(s[:3]) for s in c_train["membership_shapes_train"]} == {
+        (128, 16, 64), (128, 16, 16), (128, 64, 64), (128, 64, 16)}
+    assert ocnp["config"]["model"] == "gin" and ocnp["config"]["testbs"] == 1024
+    assert ocnp["config"]["use_valedges_as_input"]
+    assert cn6["adj3_nnz"] > 0 and cn6["k3"] == 16
+    for line in (ocnp, cn6, hoist):
+        assert np.isfinite(line["losses"]).all() and line["eval_s"] > 0
+        assert line["membership_launches_eval"] > 0
+    assert ocnp["chunk_score_max_abs_err"] == 0.0
+    assert cn6["chunk_score_max_abs_err"] == 0.0
+    assert hoist["group_score_max_abs_err"] == 0.0
+    assert set(variants) == {"phase", "seconds", "cn1", "cn8", "cn9"}
+    # cn1 and cn9 carry two (n_nodes, hidden) one-hot weights, cn8 none
+    assert (variants["cn1"]["parameters"] - variants["cn8"]["parameters"]
+            > 2 * ds.n_nodes * 16 - 2 * 16 * 16 * 3)
+    assert v_launches == sum(
+        sum(variants[n]["membership_launches_per_step"])
+        + variants[n]["membership_launches_eval"] for n in ("cn1", "cn8", "cn9"))
+    assert sum(o_shapes.values()) == 96 + o_eval["membership_launches_eval"]
 
 
 @pytest.mark.parametrize("intervals,lo,hi,want", [

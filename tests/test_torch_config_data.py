@@ -44,8 +44,9 @@ def test_config_defaults_and_fields_match():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("hoist_frames", True), ("cndeg", 32), ("two_hop_mode", "sddmm"), ("encoder_stack", "ho"),
-    ("predictor", "cn7"), ("dp_devices", 4), ("graph_sharding", "node"),
+    ("cndeg", 32), ("two_hop_mode", "sddmm"), ("encoder_stack", "ho"),
+    ("predictor", "cn2"), ("predictor", "cn3"), ("predictor", "cn4"),
+    ("dp_devices", 4), ("graph_sharding", "node"),
 ])
 def test_unported_fields_raise(field, value):
     cfg = tcfg.Config(**{field: value})
@@ -55,7 +56,9 @@ def test_unported_fields_raise(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("ell_tables", True), ("k_small", 16), ("window_table", True),
-    ("frame_group", 8), ("dtype", "bfloat16"),
+    ("frame_group", 8), ("dtype", "bfloat16"), ("hoist_frames", True),
+    ("predictor", "cn1"), ("predictor", "cn5"), ("predictor", "cn6"),
+    ("predictor", "cn7"), ("predictor", "cn8"), ("predictor", "cn9"),
 ])
 def test_ported_fields_are_accepted(field, value):
     tcfg.require_supported(tcfg.Config(**{field: value}))
@@ -63,15 +66,18 @@ def test_ported_fields_are_accepted(field, value):
 
 def test_collab_preset_needs_the_knobs_off():
     # presets("collab", "cn5") (ELL tables, k_small=16) runs as it is, with
-    # the window table, and at bench.py's frame_group 8 and bfloat16; the
-    # hoisted frames still raise
+    # the window table, at bench.py's frame_group 8 and bfloat16, and with
+    # hoisted frames; so do the OCNP presets; the incomplete family raises
     tcfg.require_supported(tcfg.presets("collab", "cn5"))
     tcfg.require_supported(tcfg.presets("collab", "cn5", window_table=True))
     tcfg.require_supported(tcfg.presets("collab", "cn5", frame_group=8,
                                         dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="Config.hoist_frames"):
-        tcfg.require_supported(tcfg.presets("collab", "cn5", frame_group=8,
-                                            hoist_frames=True))
+    tcfg.require_supported(tcfg.presets("collab", "cn5", frame_group=8,
+                                        hoist_frames=True))
+    for ds in ("Cora", "Citeseer", "Pubmed", "collab"):
+        tcfg.require_supported(tcfg.presets(ds, "cn7"))
+    with pytest.raises(NotImplementedError, match="Config.predictor"):
+        tcfg.require_supported(tcfg.presets("collab", "cn2"))
 
 
 def _assert_dataset_equal(a, b):

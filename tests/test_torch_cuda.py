@@ -60,6 +60,11 @@ def _inputs(rng, lead, kq, ks, n, unit_w):
     ((77, 5), 16, 600, 500, True),      # (B, R, K) with Ks past one tile
     ((517,), 16, 2000, 300, True),      # Kq*Ks = 32,000, near the limit
     ((333,), 64, 500, 200, False),      # Kq*Ks = 32,000 at Kq = 64
+    # the shapes of the hoisted step (2 * 65536 rows) and of cn6's chunks
+    # (its third lookup against 16 lanes of A^3), exact with unit weights
+    ((131072,), 64, 64, 3000, True),
+    ((4096,), 64, 16, 300, True),
+    ((4096,), 16, 16, 300, True),
 ])
 def test_membership_kernel_matches_plain(cuda, lead, kq, ks, n, unit_w):
     q, ids, w = (torch.as_tensor(a, device=cuda) for a in
@@ -106,6 +111,30 @@ def test_cn_frames_on_the_card_match_cpu(cuda):
         assert tm.membership_counts.launches == before + (2 if dev == cuda else 0)
     for a, b in zip(out["cpu"], out["cuda"]):
         assert torch.equal(a, b)  # unit adjacency values: exact
+
+
+def test_cn3_frame_on_the_card_matches_cpu(cuda):
+    """cn6's third frame on the A^3 path (a capped A^3, rows wider than the
+    16-lane gather take their first window), card against CPU: exact."""
+    ds = synthetic_dataset("Cora", seed=4, scale=0.2)
+    n = ds.n_nodes
+    ip, col = B.csr_from_edge_index(ds.edge_index, n)
+    ip2, col2, val2 = B.adj2_csr(ip, col, n, cap=256)
+    n2 = int(ip2[-1])
+    ip3, col3, val3 = B.spgemm_csr(ip2, col2[:n2], val2[:n2], ip, col, None, n, cap=64)
+    assert int(np.diff(ip3).max()) > 16
+    tar = ds.split_edge["train"]["edge"][:300].T
+    out = {}
+    for dev in ("cpu", cuda):
+        g = graph_from_numpy(ip, col, n).to(dev)
+        a3 = graph_from_numpy(ip3, col3, n, val3, gather_only=True).to(dev)
+        t = torch.as_tensor(tar, device=dev)
+        src = tf.gather_neighbors(g, t[0], 32)
+        before = tm.membership_counts.launches
+        cn3 = tf.cn3_frame(g, t, src, k2=16, k3=16, adj3=a3)
+        assert tm.membership_counts.launches == before + (1 if dev == cuda else 0)
+        out[str(dev)] = cn3.val.cpu()
+    assert torch.equal(out["cpu"], out["cuda"]) and (out["cpu"] != 0).any()
 
 
 TRAIN_KW = dict(model="gcn", mplayers=2, hiddim=32, ln=True, res=True, jk=True,

@@ -416,3 +416,25 @@ def test_params_from_jax_rejects_unmapped(pair):
            "predictor": {**params["predictor"], "Extra_0": {}}}
     with pytest.raises(KeyError, match="Extra_0"):
         params_from_jax(bad, ema, state.encoder, state.predictor)
+
+
+@pytest.mark.filterwarnings("ignore:dataset 'Cora' unavailable offline")
+@pytest.mark.parametrize("predictor,extra", [
+    ("cn7", []), ("cn8", ["--hoist_frames"]), ("cn9", []),
+    ("cn1", ["--hoist_frames"]), ("cn6", []),
+])
+def test_cli_runs_every_frame_predictor(capsys, predictor, extra):
+    """The Cora README preset (for cn7 its OCNP command) for each new
+    predictor, cut to a small graph, hoisted frames through the flag."""
+    cfg = tcli.parseargs([
+        "--dataset", "Cora", "--predictor", predictor, "--preset",
+        "--epochs", "1", "--runs", "1", "--hiddim", "16", "--batch_size",
+        "128", "--testbs", "512", "--synthetic_scale", "0.1", "--platform",
+        "cpu", *extra])
+    assert cfg.predictor == predictor and cfg.hoist_frames == bool(extra)
+    if predictor == "cn7":
+        assert (cfg.sum, cfg.model) == (0.0, "puregcn")
+    summary = tcli.run(cfg)
+    out = capsys.readouterr().out
+    assert "Final result: val" in out and out.count("Hits@100  Run: 01") == 1
+    assert 0.0 <= summary["val_mean"] <= 1.0
