@@ -14,15 +14,19 @@ and the script exits nonzero:
              it is a copy), then timed beside its bound and, where one
              PyTorch call computes the same function, that call: ``ms`` is
              the per-call time of the wrapper (CUDA events over 200 calls),
-             ``device_ms`` the kernel's own time on the card (torch.profiler,
-             device time summed by kernel name over 50 calls, divided by the
-             launches).
+             ``device_ms`` the kernel's own time on the card (CUDA events
+             around 50 calls queued behind a spin kernel, so that the card
+             runs them back to back, divided by the calls).
 3. reference - the slices at a tiny size on the card against the same
              slices on the CPU (plain versions), same initial weights: the plain
              path, the window path with ELL tables and the dual-K split,
              the grouped bfloat16 program, then two steps each of cn7 (also
              with the window table), cn8, cn9, cn1, cn6 (A^3 table, dual-K)
-             and hoisted cn5, losses, Hits and eval scores compared.
+             and hoisted cn5, then of the "ho" stack on ppa (Embedding
+             input, path-count cn2, maskinput, ELL tables, dual-K) and on
+             citation2 (randint-target negatives, MRR), and of the SDDMM
+             two-hop mode (the spd preset's exactly-distance-2 counts):
+             losses, Hits or MRR and eval scores compared.
 4. slice   - the main path at full width: synthetic collab (scale 1.0,
              BFS-relabelled), the 3-layer gcn encoder with LN/res/JK at
              hidden 256, cn5 with pad_deg 64 / pad_deg2 64 and the host A^2
@@ -64,16 +68,46 @@ and the script exits nonzero:
              2 * 65536 rows, the step's one group re-scored.
 10. variants_slice - bench.py's program with cn1, cn8 and cn9: one step
              and one evaluate each.
-11. membership_shapes - the membership kernel at each (rows, Kq, Ks) that
-             phases 6-10 launched: exact against its plain version with unit
+11. presets_slice - each of the 16 README preset keys, presets(dataset,
+             predictor): a fresh Trainer, one step and one evaluate (MRR for
+             citation2), Cora, Citeseer, Pubmed, ddi and collab at synthetic
+             scale 1.0, ppa and citation2 at PRESET_SCALE; every split cut
+             to its first EVAL_CUT rows (MRR: PRESET_MRR_CUT sources).
+12. ppa_slice - bench.py's ppa shape (bench.py:118-151): the 1-layer "ho"
+             gcn at hidden 64 on synthetic ppa (integer features, BFS-
+             relabelled) at PPA_SCALE, path-count cn2, batch 16384 in chunks
+             of 512, k_small 16 (the split does not engage: no ppa node has
+             degree <= 16), frame_group 8, the host A^2 capped at 1024
+             (seconds, entries, host and device bytes; its path counts pass
+             the col|count packing limit, so the ELL tables stay off, as in
+             the JAX package).  Three steps and one evaluate over splits cut
+             to EVAL_CUT rows; membership exactly twice per frame group; one
+             group re-scored.
+13. citation2_slice - bench.py's citation2 shape (bench.py:110-114): the
+             3-layer "ho" puregcn at hidden 64 on synthetic citation2 at
+             scale 1.0, path-count cn2, randint-target negatives, batch
+             32768 in chunks of 2048, A^2 capped at 128.  Three steps, then
+             evaluate_mrr over the first MRR_CUT valid and test sources;
+             membership exactly twice per frame group; one group re-scored.
+14. spd_slice - presets("citation2", "spd") at its own width: the 5-layer
+             "ho" gcn at hidden 32, exactly-distance-2 counts in the SDDMM
+             mode (no A^2, no ELL table) on the same dataset and MRR cut.
+             Membership exactly once per chunk (cn1; the counts' lookup is
+             past _COMPARE_LIMIT and takes the binary search); one chunk
+             re-scored.
+15. membership_shapes - the membership kernel at each (rows, Kq, Ks) that
+             phases 6-14 launched: exact against its plain version with unit
              weights, then timed beside its bound.
-12. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
+16. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
              at its full size (the three gather kernels of
              scripts/bench_gather.py on the card); each kernel must launch.
 
-Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits,
-its membership launches (per step, in eval, by shape) and peak device
-memory (train and eval apart where both run).  Phase 2 also holds the row
+The datasets of phases 12-14 are made in two worker processes while the
+card runs phases 1-11; their lines give the workers' seconds and the wait.
+Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits
+(or mrr), its membership launches (per step, in eval, by shape) and peak
+device memory (train and eval apart where both run); the phases on new
+datasets also the seconds of their data, BFS relabel and trainer set-up.  Phase 2 also holds the row
 gather, the sorted-block gather and the window gather at bfloat16 against
 their plain versions, exactly, at the instrument's shapes and at ragged
 ones.
@@ -87,11 +121,12 @@ import collections
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -121,6 +156,29 @@ CN6_PATH = dict(BENCH_PATH, predictor="cn6")
 HOIST_PATH = dict(BENCH_PATH, hoist_frames=True)
 # the predictors variants_slice drives on bench.py's program
 VARIANTS = ("cn1", "cn8", "cn9")
+# bench.py's per-dataset shapes (bench.py:110-128), on its own program
+PPA_SHAPE = dict(dataset="ppa", model="gcn", hiddim=64, mplayers=1,
+                 encoder_stack="ho", cn2_counts=True, ln=False, res=False,
+                 jk=False, gnndp=0.1, xdp=0.1, tdp=0.1, gnnedp=0.1, predp=0.1,
+                 preedp=0.0, batch_size=16384, testbs=16384,
+                 linkbatchsize=512, adj2_cap=1024)
+CITATION2_SHAPE = dict(dataset="citation2", model="puregcn", hiddim=64,
+                       encoder_stack="ho", cn2_counts=True,
+                       neg_mode="randint_target", batch_size=32768,
+                       testbs=32768, linkbatchsize=2048, adj2_cap=128)
+# synthetic scales: ppa_slice's (the host A^2 at cap 1024 over 576,289 nodes
+# of degree ~100 costs minutes of set-up at 1.0), and the ppa and citation2
+# keys of presets_slice (their full-size shapes are phases 12-14)
+PPA_SCALE = 0.5
+PRESET_SCALE = 0.05
+# eval cuts: every split of a Hits dataset to its first EVAL_CUT rows, the
+# citation2 MRR to its first MRR_CUT (PRESET_MRR_CUT in presets_slice) valid
+# and test sources with their 100 negatives each; citation2's train split
+# keeps TRAIN_CUT edges, three of its 32,768-link batches and more
+EVAL_CUT = 65536
+MRR_CUT = 16384
+PRESET_MRR_CUT = 2048
+TRAIN_CUT = 131072
 
 
 def emit(obj) -> None:
@@ -141,21 +199,13 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, pattern: str) -> dict:
-    """The kernel's own time on the card: torch.profiler's device time of
-    the kernels named like ``pattern`` over 50 calls, per launch, and the
-    launches the trace holds (it can miss the first few; more than 50
-    would mean a call launched the kernel twice)."""
+def device_ms(fn) -> dict:
+    """The kernel's own time on the card: 50 calls queued behind a spin
+    kernel, so that the card runs them back to back, timed by CUDA events
+    (each wrapper launches one kernel a call and nothing else)."""
     from ocn_tpu_torch.utils import profiling
 
-    ms, launches = profiling.kernel_device_ms(fn, pattern)
-    if launches > 50:
-        raise AssertionError(f"{pattern}: {launches} launches in 50 calls")
-    return {"device_ms": ms, "device_launches": launches}
-
-
-MEMBERSHIP_KERNEL = r"membership_kernel"
-WINDOW_KERNEL = r"window_rows_kernel"
+    return {"device_ms": profiling.queued_device_ms(fn)}
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -246,7 +296,7 @@ def membership_timing(gen, b, kq, ks):
     q, ids, w = membership_inputs(gen, (b,), kq, ks, 235868, False)
     return {"shape": [b, kq, ks],
             "ms": cuda_time_ms(lambda: membership_counts(q, ids, w)),
-            **device_ms(lambda: membership_counts(q, ids, w), MEMBERSHIP_KERNEL),
+            **device_ms(lambda: membership_counts(q, ids, w)),
             "plain_ms": cuda_time_ms(lambda: membership_counts_plain(q, ids, w)),
             # one compare and one add per (b, k, s)
             **bound(b * (4 * kq + 8 * ks) + 4 * b * kq, 2 * b * kq * ks)}
@@ -316,12 +366,13 @@ def window_checks(gen):
         pos0 = torch.randint(0, e - k + 1, (b,), generator=tgen, device="cuda",
                              dtype=torch.int32)
         timings.append(window_timing(y, pos0, k))
-    # a call is one device kernel: no start arithmetic around it
-    activities = profiling.profile_calls(lambda: W.window_rows(y, pos0, 16), 1)
-    if len(activities) != 1:
-        raise AssertionError(f"window_rows: {len(activities)} device activities "
-                             f"in one call: {[a[0][:60] for a in activities]}")
-    timings[0]["device_activities_per_call"] = len(activities)
+    # a call is one device kernel: no start arithmetic around it (the trace
+    # can drop activities, never add them)
+    names = profiling.kernel_names(lambda: W.window_rows(y, pos0, 16), 20)
+    if len(names) > 20 or any("window_rows_kernel" not in n for n in names):
+        raise AssertionError(f"window_rows: {len(names)} device activities in "
+                             f"20 calls: {sorted({n[:60] for n in names})}")
+    timings[0]["traced_activities_in_20_calls"] = len(names)
     return rows, max_err, timings
 
 
@@ -342,7 +393,7 @@ def window_timing(y, pos0, k):
     dst = torch.empty_like(src)
     return {"shape": [b, j, h], "dtype": str(y.dtype),
             "ms": cuda_time_ms(lambda: W.window_rows(y, pos0, k)),
-            **device_ms(lambda: W.window_rows(y, pos0, k), WINDOW_KERNEL),
+            **device_ms(lambda: W.window_rows(y, pos0, k)),
             "plain_ms": cuda_time_ms(lambda: W.window_rows_plain(y, pos0, k)),
             "library_ms": cuda_time_ms(lambda: torch.index_select(y, 0, idx)),
             # a contiguous Tensor.copy_ of as many bytes, each read and
@@ -419,7 +470,7 @@ def row_checks(gen, x, idx_np, srt_np):
     rb = h * x.element_size()
     timing = {"shape": [m, h], "dtype": str(x.dtype),
               "ms": cuda_time_ms(lambda: RG.row_rows(x, idx)),
-              **device_ms(lambda: RG.row_rows(x, idx), r"\brow_rows_kernel\b"),
+              **device_ms(lambda: RG.row_rows(x, idx)),
               "plain_ms": cuda_time_ms(lambda: RG.row_rows_plain(x, idx)),
               "library_ms": cuda_time_ms(lambda: torch.index_select(x, 0, idx)),
               "sorted_ms": cuda_time_ms(lambda: RG.row_rows(x, idx_sorted)),
@@ -477,8 +528,7 @@ def sorted_block_checks(gen, x, srt_np, s):
     rb = h * x.element_size()
     timing = {"shape": [m, h], "ts": ts, "w": w, "dtype": str(x.dtype),
               "ms": cuda_time_ms(lambda: RG.sorted_block_rows(x, ids, bases, ts, w)),
-              **device_ms(lambda: RG.sorted_block_rows(x, ids, bases, ts, w),
-                          r"sorted_block_rows_kernel"),
+              **device_ms(lambda: RG.sorted_block_rows(x, ids, bases, ts, w)),
               "plain_ms": cuda_time_ms(
                   lambda: RG.sorted_block_rows_plain(x, ids, bases, ts, w)),
               "library_ms": cuda_time_ms(lambda: torch.index_select(x, 0, ids)),
@@ -539,7 +589,12 @@ def phase_reference():
     and bfloat16 features; three epochs each.  Then, two steps each (one
     epoch), the new predictors on the tables with the dual-K split: cn7
     (also with the window table), cn8, cn9, cn1, cn6 (with its A^3 table),
-    and hoisted cn5; their valid-edge scores are compared too."""
+    and hoisted cn5; their valid-edge scores are compared too.  Then two
+    steps each of the "ho" stack: on ppa (Embedding input, path-count cn2,
+    maskinput, ELL tables, dual-K), on citation2 (randint-target
+    negatives, MRR on 32 sources), and in the SDDMM mode on citation2 (the
+    spd preset's exactly-distance-2 counts; no tables, so its caps sit above
+    every degree)."""
     from ocn_tpu_torch.config import Config
     from ocn_tpu_torch.data.loaders import synthetic_dataset
     from ocn_tpu_torch.ops import window_gather as W
@@ -547,6 +602,10 @@ def phase_reference():
 
     t0 = time.perf_counter()
     ds = synthetic_dataset("Cora", seed=0, scale=0.3).reorder_bfs()
+    ppa = cut_splits(synthetic_dataset("ppa", seed=0, scale=0.0005), 640, 256
+                     ).reorder_bfs()
+    c2 = cut_splits(synthetic_dataset("citation2", seed=0, scale=0.00015), 640,
+                    32).reorder_bfs()
     base = Config(model="gcn", mplayers=2, hiddim=32, ln=True, res=True,
                   jk=True, use_xlin=True, tailact=True, gnndp=0.0, xdp=0.0,
                   tdp=0.0, gnnedp=0.0, predp=0.0, preedp=0.0, maskinput=True,
@@ -570,17 +629,35 @@ def phase_reference():
              ("cn1", dataclasses.replace(tables, predictor="cn1"), 1),
              ("cn6", dataclasses.replace(tables, predictor="cn6"), 1),
              ("hoisted_cn5", dataclasses.replace(tables, hoist_frames=True), 1)]
-    valid = ds.split_edge["valid"]["edge"]
+    cases = [(name, cfg, epochs, ds) for name, cfg, epochs in cases]
+    ho = dataclasses.replace(tables, encoder_stack="ho", cn2_counts=True,
+                             gnnedp=0.3, batch_size=256, linkbatchsize=32,
+                             pad_deg=16, pad_deg2=16)
+    cases += [
+        ("ppa", dataclasses.replace(ho, dataset="ppa", mplayers=1, res=False,
+                                    small_frac=0.25, small_frac_neg=0.25), 1, ppa),
+        ("citation2", dataclasses.replace(
+            ho, dataset="citation2", model="puregcn", mplayers=3,
+            neg_mode="randint_target", maskinput=False), 1, c2),
+        ("spd", dataclasses.replace(
+            ho, dataset="citation2", two_hop_mode="sddmm", exact_two_hop=True,
+            neg_mode="randint_target", maskinput=False, pad_deg=64,
+            pad_deg2=64, k_small=0), 1, c2)]
     out = {"phase": "reference"}
-    for name, cfg, epochs in cases:
+    for name, cfg, epochs, ds in cases:
+        valid = ds.split_edge["valid"]["edge"]
         losses, hits, scores = {}, {}, {}
         for dev in ("cpu", DEVICE):
             tr = Trainer(cfg, ds, device=dev)
             if name == "plain" and (int(tr.g.deg.max()) > cfg.pad_deg
                                     or int(tr.adj2.deg.max()) > cfg.pad_deg2):
                 raise AssertionError("reference graph exceeds the frame caps")
-            if name in ("window", "cn6") and not (tr._use_ell and tr._split):
+            if name in ("window", "cn6", "ppa", "citation2") and not (
+                    tr._use_ell and tr._split):
                 raise AssertionError(f"{name} reference: tables or split off")
+            if name == "spd" and (tr.adj2 is not None
+                                  or int(tr.g.deg.max()) > cfg.pad_deg):
+                raise AssertionError("spd reference: an A^2, or a cap binds")
             if name == "grouped" and (tr._split != (3, 3)
                                       or tr.x.dtype != torch.bfloat16):
                 raise AssertionError(f"grouped reference: split {tr._split}, "
@@ -590,7 +667,9 @@ def phase_reference():
             W.window_rows.launches = 0
             losses[dev] = [tr.train_epoch(state, rng, ep)[1]
                            for ep in range(1, epochs + 1)]
-            hits[dev] = tr.evaluate(state)["Hits@50"]
+            res = evaluate(tr, state)
+            hits[dev] = ([res["valid"], res["test"]] if cfg.dataset == "citation2"
+                         else res["Hits@50"])
             if epochs == 1:
                 g, a2 = tr._eval_graphs()
                 scores[dev] = tr._score_split(state, tr.encode(state), g, valid, a2)
@@ -604,10 +683,11 @@ def phase_reference():
             np.testing.assert_allclose(scores[DEVICE], scores["cpu"],
                                        rtol=1e-4, atol=1e-4)
         prefix = "" if name == "plain" else f"{name}_"
+        metric = "mrr" if cfg.dataset == "citation2" else "hits50"
         out.update({f"{prefix}loss_cpu": losses["cpu"],
                     f"{prefix}loss_cuda": losses[DEVICE],
-                    f"{prefix}hits50_cpu": hits["cpu"],
-                    f"{prefix}hits50_cuda": hits[DEVICE]})
+                    f"{prefix}{metric}_cpu": hits["cpu"],
+                    f"{prefix}{metric}_cuda": hits[DEVICE]})
     out["seconds"] = time.perf_counter() - t0
     emit(out)
 
@@ -629,13 +709,17 @@ def slice_config(**kw):
 
 def step_batches(tr, ds, nsteps=3):
     """Positive edges, negatives and ``nsteps`` batches of indices, from
-    seed 0 as bench.py draws them."""
+    seed 0 as bench.py draws them (randint-target negatives keep the
+    positive sources)."""
     from ocn_tpu_torch.sparse import build as B
 
     rng = np.random.default_rng(0)
     pos = tr.train_edges
     e = pos.shape[1]
-    neg = B.negative_sampling(ds.edge_index, ds.n_nodes, e, rng)
+    if tr.cfg.neg_mode == "randint_target":
+        neg = np.stack([pos[0], rng.integers(0, ds.n_nodes, size=e)])
+    else:
+        neg = B.negative_sampling(ds.edge_index, ds.n_nodes, e, rng)
     perm = rng.permutation(e)
     bs = tr.cfg.batch_size
     return pos, neg, [perm[i * bs:(i + 1) * bs] for i in range(nsteps)]
@@ -658,9 +742,19 @@ def run_steps(tr, state, pos, neg, batches, gen):
 
 
 def check_hits(results):
+    """Hits@K (train, valid, test) triples, or the {"valid", "test"} MRRs,
+    all in [0, 1]."""
     for key, vals in results.items():
-        if not all(0.0 <= v <= 1.0 for v in vals):
+        if not all(0.0 <= v <= 1.0 for v in np.atleast_1d(vals)):
             raise AssertionError(f"{key} out of range: {vals}")
+
+
+def evaluate(tr, state):
+    """The trainer's eval for its dataset, as cli.run picks it: MRR for
+    citation2, Hits@K for the rest."""
+    if tr.cfg.dataset == "citation2":
+        return tr.evaluate_mrr(state)
+    return tr.evaluate(state)
 
 
 def phase_slice(ds, t_data, **overrides):
@@ -829,7 +923,7 @@ def frame_groups(cfg, split, chunk):
     plan) in groups of frame_group, the big body's in groups of eff_grp, the
     largest divisor of its chunk count <= frame_group."""
     grp = cfg.frame_group
-    nsp, nsn = split
+    nsp, nsn = split or (0, 0)
     n_small = nsp + nsn
     n_big = 2 * (cfg.batch_size // chunk) - n_small
     if n_small % grp:
@@ -948,21 +1042,22 @@ def drive_steps(tr, state, pos, neg, batches, gen):
 
 
 def timed_eval(tr, state):
-    """One Trainer.evaluate, timed, its membership launches counted and its
-    peak device memory apart from the training's; returns (record,
-    shapes)."""
+    """One evaluate (Trainer.evaluate_mrr for citation2), timed, its
+    membership launches counted and its peak device memory apart from the
+    training's; returns (record, shapes)."""
     from ocn_tpu_torch.ops.membership import membership_counts
 
     torch.cuda.reset_peak_memory_stats()
     membership_counts.launches = 0
     membership_counts.shapes.clear()
     te = time.perf_counter()
-    results = tr.evaluate(state)
+    results = evaluate(tr, state)
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - te
     check_hits(results)
     shapes = collections.Counter(membership_counts.shapes)
-    return {"eval_s": t_eval, "hits": results,
+    return {"eval_s": t_eval,
+            ("mrr" if tr.cfg.dataset == "citation2" else "hits"): results,
             "membership_launches_eval": membership_counts.launches,
             "membership_shapes_eval": shape_list(shapes),
             "peak_mem_eval_gb": torch.cuda.max_memory_allocated() / 1e9}, shapes
@@ -1173,6 +1268,214 @@ def phase_variants_slice(ds, **overrides):
     return launches, shapes
 
 
+def cut_splits(ds, n_train, n_eval):
+    """The dataset with each train array cut to its first n_train rows and
+    every other split's to n_eval (for citation2 that many sources with
+    their rows of negatives).  The graph keeps every edge: the cut bounds
+    the links an eval scores and the train links the steps draw from."""
+    split = {part: {k: v[:n_train if part == "train" else n_eval]
+                    for k, v in d.items()}
+             for part, d in ds.split_edge.items()}
+    return dataclasses.replace(ds, split_edge=split)
+
+
+def new_dataset(name, scale, n_train, n_eval):
+    """Synthetic ``name`` at ``scale``, its splits cut, BFS-relabelled;
+    returns (dataset, {"data_s", "bfs_s"}).  The cut comes first, so the
+    relabel maps only the rows that are kept."""
+    from ocn_tpu_torch.data.loaders import synthetic_dataset
+
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(name, seed=0, scale=scale)
+    t1 = time.perf_counter()
+    ds = cut_splits(ds, n_train, n_eval).reorder_bfs()
+    return ds, {"data_s": t1 - t0, "bfs_s": time.perf_counter() - t1,
+                "scale": scale, "n_nodes": ds.n_nodes,
+                "adjacency_entries": int(ds.edge_index.shape[1]),
+                "split_rows": {part: {k: len(v) for k, v in d.items()}
+                               for part, d in ds.split_edge.items()}}
+
+
+def host_peak_rss_gb():
+    """The process's peak resident host memory so far."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def adj2_record(tr):
+    """The host A^2's build seconds and entries, and the bytes of its
+    gather-only layout: on the host the CSR the SpGEMM writes (column and
+    count per entry, 8 B), on the card indptr, deg and the entries, packed
+    col|count (4 B) where the counts fit 31 - col_bits bits, else column and
+    count apart (8 B; the ELL tables then stay off)."""
+    a2 = tr.adj2
+    nnz = int(a2.indptr[-1])
+    return {"adj2_host_build_s": tr.adj2_seconds, "adj2_nnz": nnz,
+            "adj2_max_deg": int(a2.deg.max()),
+            "adj2_packed": a2.packed is not None, "ell_tables": tr._use_ell,
+            "adj2_max_count": (int(a2.val.max()) if a2.packed is None else
+                               int((a2.packed >> a2.col_bits).max())),
+            "adj2_pack_limit": 1 << (31 - max(int(a2.n_nodes - 1).bit_length(), 1)),
+            "adj2_host_csr_gb": (8 * nnz + 4 * (a2.n_nodes + 1)) / 1e9,
+            "adj2_device_gb": sum(t.numel() * t.element_size() for t in (
+                a2.indptr, a2.deg, a2.packed, a2.col, a2.val) if t is not None) / 1e9,
+            "host_peak_rss_gb": host_peak_rss_gb()}
+
+
+def phase_shape_slice(name, ds, data, nsteps=3, **overrides):
+    """bench.py's ppa or citation2 shape (``name`` "ppa_slice" or
+    "citation2_slice") on its own program: the "ho" stack with path-count
+    cn2, frame_group 8, k_small 16, ELL tables where A^2 packs; for ppa the
+    Embedding input (no ppa node has degree <= 16, so the split does not
+    engage), for citation2 randint-target negatives, the split, and
+    evaluate_mrr over the cut sources.  Two membership launches per frame
+    group; one group re-scored with the plain version."""
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    ppa = name == "ppa_slice"
+    shape = PPA_SHAPE if ppa else CITATION2_SHAPE
+    cfg = slice_config(**{**BENCH_PATH, **shape, **overrides})
+    tr = Trainer(cfg, ds, device=DEVICE)
+    state = tr.init_state(0)
+    if (tr._use_ell != (tr.adj2.packed is not None)
+            or (tr.x.dtype == torch.int64) != ppa or (tr._split is None) != ppa):
+        raise AssertionError(f"{name}: tables {tr._use_ell}, x {tr.x.dtype}, "
+                             f"split {tr._split}")
+    if tr._use_ell:
+        tr._refresh_ell(np.random.default_rng(1))
+    torch.cuda.synchronize()
+    t_trainer = time.perf_counter() - t0
+    groups = frame_groups(cfg, tr._split, tr._chunk())
+    pos, neg, batches = step_batches(tr, ds, nsteps)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state, train, shapes = drive_steps(tr, state, pos, neg, batches, gen)
+    expect_launches(name, train["membership_launches_per_step"],
+                    [2 * groups] * nsteps)
+    evals, eval_shapes = timed_eval(tr, state)
+    grp, k = cfg.frame_group, None if ppa else cfg.k_small
+    err = rescore(tr, state, pos, neg, batches[-1],
+                  lambda pe, ne, c: [(pe[:, :grp * c], grp, k)], 2)
+    extra = {} if ppa else {
+        "mrr_sources": {p: len(ds.split_edge[p]["source_node"])
+                        for p in ("valid", "test")},
+        "mrr_eval_s": evals["eval_s"]}
+    emit({"phase": name, "seconds": time.perf_counter() - t0, **data,
+          "trainer_init_s": t_trainer, **adj2_record(tr),
+          "split": tr._split and list(tr._split), "groups_per_step": groups,
+          **train, **evals, **extra, "group_score_max_abs_err": err,
+          "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"])})
+    return train, evals, shapes + eval_shapes
+
+
+def phase_spd_slice(ds, nsteps=3, **overrides):
+    """presets("citation2", "spd"): the SDDMM two-hop mode, no A^2 and no
+    ELL table.  Membership launches once per chunk (cn1): the counts'
+    lookup, (C, K*K2) queries against K2 ids, is past _COMPARE_LIMIT and
+    takes the binary search.  One chunk re-scored with the plain version."""
+    from ocn_tpu_torch.config import presets
+    from ocn_tpu_torch.ops import frame
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg = presets("citation2", "spd", **overrides)
+    tr = Trainer(cfg, ds, device=DEVICE)
+    state = tr.init_state(0)
+    if tr.adj2 is not None or tr.adj3 is not None or tr._use_ell:
+        raise AssertionError("spd slice: an A^2, A^3 or ELL table was built")
+    k, k2 = cfg.pad_deg, cfg.pad_deg2
+    if k * k2 * k2 <= frame._COMPARE_LIMIT:
+        raise AssertionError(f"spd slice: the counts' lookup ({k * k2} x {k2}) "
+                             "would take the membership kernel")
+    torch.cuda.synchronize()
+    t_trainer = time.perf_counter() - t0
+    pos, neg, batches = step_batches(tr, ds, nsteps)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state, train, shapes = drive_steps(tr, state, pos, neg, batches, gen)
+    c = tr._chunk()
+    expect_launches("spd_slice", train["membership_launches_per_step"],
+                    [2 * cfg.batch_size // c] * nsteps)
+    evals, eval_shapes = timed_eval(tr, state)
+    if set(shapes) != {(c, k, k2)} or set(eval_shapes) != {(cfg.testbs, k, k2)}:
+        raise AssertionError(f"spd slice: membership shapes {dict(shapes)} in "
+                             f"training, {dict(eval_shapes)} in eval")
+    err = rescore(tr, state, pos, neg, batches[-1],
+                  lambda pe, ne, c: [(pe[:, :c], 1, None)], 1)
+    emit({"phase": "spd_slice", "seconds": time.perf_counter() - t0,
+          "trainer_init_s": t_trainer, "adj2": None, "ell_tables": False,
+          "config": {key: getattr(cfg, key) for key in (
+              "model", "mplayers", "hiddim", "encoder_stack", "two_hop_mode",
+              "exact_two_hop", "cn2_counts", "batch_size", "linkbatchsize",
+              "testbs", "pad_deg", "pad_deg2")},
+          **train, **evals, "mrr_eval_s": evals["eval_s"],
+          "chunk_score_max_abs_err": err,
+          "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"])})
+    return train, evals, shapes + eval_shapes
+
+
+def phase_presets_slice(datasets, scale=1.0, large_scale=PRESET_SCALE,
+                        eval_cut=EVAL_CUT, mrr_cut=PRESET_MRR_CUT, **overrides):
+    """Each README preset key: a fresh Trainer on presets(dataset,
+    predictor), one step on one batch from prepare_batch, then evaluate
+    (evaluate_mrr for citation2).  ``datasets`` holds the ones built
+    already (their splits whole); the others are made at ``scale`` (ppa and
+    citation2 at ``large_scale``), each once.  ``overrides`` go to every
+    preset, for the rehearsal on the CPU."""
+    from ocn_tpu_torch.config import _README_PRESETS, presets
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    made, out, launches, shapes = {}, {}, 0, collections.Counter()
+    for name, pred in sorted(_README_PRESETS):
+        cfg = presets(name, pred, **overrides)
+        mrr = name == "citation2"
+        key = (name, cfg.use_valedges_as_input)
+        if key not in made:
+            if name in datasets:
+                t1 = time.perf_counter()
+                ds = datasets[name]
+                if cfg.use_valedges_as_input:
+                    ds = with_valid_edges(ds)
+                ds = cut_splits(ds, eval_cut, mrr_cut if mrr else eval_cut)
+                data = {"data_s": time.perf_counter() - t1, "bfs_s": 0.0}
+            else:
+                ds, data = new_dataset(
+                    name, large_scale if name in ("ppa", "citation2") else scale,
+                    eval_cut, mrr_cut if mrr else eval_cut)
+            made[key] = ds, {k: data[k] for k in ("data_s", "bfs_s")}
+        ds, data = made[key]
+        t1 = time.perf_counter()
+        tr = Trainer(cfg, ds, device=DEVICE)
+        state = tr.init_state(0)
+        if tr._use_ell:
+            tr._refresh_ell(np.random.default_rng(1))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t1
+        pos, neg, batches = step_batches(tr, ds, 1)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        state, train, s_train = drive_steps(tr, state, pos, neg, batches, gen)
+        evals, s_eval = timed_eval(tr, state)
+        launches += train["membership_launches_per_step"][0]
+        launches += evals["membership_launches_eval"]
+        shapes += s_train + s_eval
+        out[f"{name}/{pred}"] = {
+            "n_nodes": ds.n_nodes, **data, "setup_s": setup_s,
+            "adj2_host_build_s": tr.adj2_seconds,
+            "step_ms": train["step_ms"][0], "loss": train["losses"][0],
+            "membership_launches_step": train["membership_launches_per_step"][0],
+            **{k: evals[k] for k in ("eval_s", "membership_launches_eval")},
+            ("mrr" if mrr else "hits"): evals["mrr" if mrr else "hits"],
+            "peak_mem_train_gb": train["peak_mem_train_gb"],
+            "peak_mem_eval_gb": evals["peak_mem_eval_gb"]}
+        del tr, state
+        torch.cuda.empty_cache()
+    emit({"phase": "presets_slice", "seconds": time.perf_counter() - t0,
+          "scales": {"ppa": large_scale, "citation2": large_scale, "others": scale},
+          "eval_cut": eval_cut, "mrr_cut": mrr_cut, "keys": out})
+    return launches, shapes
+
+
 def phase_gather_bench(**sizes):
     """The row-gather instrument; ``sizes`` shrink it for the rehearsal."""
     from ocn_tpu_torch.ops import row_gather as RG
@@ -1236,6 +1539,26 @@ def main() -> int:
     # full float32 matrix products (no TF32), as the JAX reference computes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the ppa and citation2 datasets take minutes of NumPy on the host: two
+    # worker processes make them while the card runs phases 1-11
+    with ProcessPoolExecutor(max_workers=2,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {"ppa": pool.submit(new_dataset, "ppa", PPA_SCALE, EVAL_CUT,
+                                   EVAL_CUT),
+                "citation2": pool.submit(new_dataset, "citation2", 1.0,
+                                         TRAIN_CUT, MRR_CUT)}
+        return run_phases(jobs)
+
+
+def made_dataset(job):
+    """A worker's (dataset, record), with the seconds the card phases then
+    waited for it."""
+    t0 = time.perf_counter()
+    ds, data = job.result()
+    return ds, {**data, "waited_s": time.perf_counter() - t0}
+
+
+def run_phases(jobs) -> int:
     from ocn_tpu_torch.data.loaders import synthetic_dataset
     from ocn_tpu_torch.ops import membership, row_gather, window_gather
 
@@ -1263,8 +1586,29 @@ def main() -> int:
         torch.cuda.empty_cache()
     new["variants_slice"], phase_shapes = phase_variants_slice(ds)
     shapes = shapes + phase_shapes
+    torch.cuda.empty_cache()
+    new["presets_slice"], phase_shapes = phase_presets_slice({"collab": ds})
+    shapes = shapes + phase_shapes
     del ds
     torch.cuda.empty_cache()
+    # bench.py's ppa and citation2 shapes and the spd preset, each on a
+    # dataset of its own, made here
+    ds, data = made_dataset(jobs["ppa"])
+    train, evals, phase_shapes = phase_shape_slice("ppa_slice", ds, data)
+    new["ppa_slice"] = (sum(train["membership_launches_per_step"])
+                        + evals["membership_launches_eval"])
+    shapes = shapes + phase_shapes
+    del ds
+    torch.cuda.empty_cache()
+    ds, data = made_dataset(jobs["citation2"])
+    for name, phase in (("citation2_slice", lambda ds: phase_shape_slice(
+            "citation2_slice", ds, data)), ("spd_slice", phase_spd_slice)):
+        train, evals, phase_shapes = phase(ds)
+        new[name] = (sum(train["membership_launches_per_step"])
+                     + evals["membership_launches_eval"])
+        shapes = shapes + phase_shapes
+        torch.cuda.empty_cache()
+    del ds
     m_shapes = phase_membership_shapes(shapes)
     g_launches, g_variants = phase_gather_bench()
 

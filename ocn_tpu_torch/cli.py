@@ -7,7 +7,8 @@ best-by-validation tracking.
 
 runs on the CUDA device; ``--platform cpu`` runs on the CPU.  Boolean flags
 take an optional value (``--ln``, ``--ln true``, ``--ln false``) or the
-``--no-`` form.  Fields this slice does not implement raise
+``--no-`` form.  citation2 is scored by MRR (Trainer.evaluate_mrr), every
+other dataset by Hits@K.  Fields the port does not implement yet raise
 NotImplementedError naming the field (Config.require_supported); so do the
 checkpoint, embedding-export and profiling flags.
 """
@@ -74,6 +75,7 @@ def parseargs(argv=None) -> Config:
 HEADLINE = {  # best-by-validation headline metric per dataset
     "collab": "Hits@50", "ppa": "Hits@100", "ddi": "Hits@20",
     "Cora": "Hits@100", "Citeseer": "Hits@100", "Pubmed": "Hits@100",
+    "citation2": "MRR",
 }
 
 
@@ -87,12 +89,11 @@ def run(cfg: Config, device: str = "cuda") -> dict:
                 "ported to ocn_tpu_torch yet (ROADMAP.md)")
     if cfg.profile_dir:
         raise NotImplementedError("Config.profile_dir is not ported yet")
-    if cfg.dataset == "citation2":
-        raise NotImplementedError("MRR evaluation (citation2) is not ported yet")
     if cfg.platform == "cpu":
         device = "cpu"
     planetoid = cfg.dataset in ("Cora", "Citeseer", "Pubmed")
     headline = HEADLINE.get(cfg.dataset, "Hits@100")
+    mrr_mode = cfg.dataset == "citation2"
     ret = []
     ds = None
     for run_i in range(cfg.runs):
@@ -111,7 +112,11 @@ def run(cfg: Config, device: str = "cuda") -> dict:
             state, loss = tr.train_epoch(state, rng, epoch)
             ttrain = time.time() - t1
             t1 = time.time()
-            results = tr.evaluate(state)
+            if mrr_mode:
+                res = tr.evaluate_mrr(state)
+                results = {"MRR": (res["valid"], res["valid"], res["test"])}
+            else:
+                results = tr.evaluate(state)
             ttest = time.time() - t1
             print(f"trn time {ttrain:.2f} s  test time {ttest:.2f} s", flush=True)
             if best is None:

@@ -463,8 +463,6 @@ def require_supported(cfg: Config) -> None:
     slice of the port does not implement."""
     unsupported = (
         ("cndeg", cfg.cndeg > 0, "CN-set degree caps"),
-        ("two_hop_mode", cfg.two_hop_mode == "sddmm", "on-the-fly A^2 counts"),
-        ("encoder_stack", cfg.encoder_stack == "ho", "the pygho encoder stack"),
         ("predictor", cfg.predictor in ("cn2", "cn3", "cn4"),
          "the incomplete-CN family"),
         ("dp_devices", cfg.dp_devices * cfg.tp_devices > 1, "multi-device meshes"),
@@ -477,5 +475,7 @@ def require_supported(cfg: Config) -> None:
                 "which ocn_tpu_torch does not implement yet (ROADMAP.md)")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"Config.dtype={cfg.dtype!r}")
-    if cfg.two_hop_mode != "gather":
+    if cfg.two_hop_mode not in ("gather", "sddmm"):
         raise ValueError(f"Config.two_hop_mode={cfg.two_hop_mode!r}")
+    if cfg.encoder_stack not in ("ts", "ho"):
+        raise ValueError(f"Config.encoder_stack={cfg.encoder_stack!r}")

@@ -1,12 +1,19 @@
-"""Graph convolutions of the torch_sparse ("ts") stack (port of
-ocn_tpu/nn/conv.py).
+"""Graph convolutions (port of ocn_tpu/nn/conv.py), both conv registries.
+
+The torch_sparse ("ts") stack:
 
 * ``PureConv``: parameter-free aggregation mean/max/sum/gcn.
 * ``GCNConvLike``: PyG-GCNConv-style conv with an internal Linear (no bias)
   and a separate bias, used by the non-"pure" names gcn/sage/gin/max;
   sage/gin/max are plain aggregation of xW plus bias.
 
-The pygho ("ho") stack is not ported yet (Config.encoder_stack raises).
+The pygho ("ho") stack:
+
+* ``PureConvV2``: PureConv for mean/max/sum; 'gcn' weights each edge by
+  ``enorm = norm[i] * norm[j]`` with norm = rsqrt(1 + rowsum(A)) and adds
+  no self term.
+* ``LinConv``: PureConvV2, then Linear(bias=False) and ReLU, used by the
+  non-"pure" names.
 """
 from __future__ import annotations
 
@@ -33,6 +40,21 @@ class PureConv(nn.Module):
         return spmm(g, x, self.aggr)
 
 
+class PureConvV2(PureConv):
+    """The pygho pure conv: PureConv for mean/max/sum; 'gcn' is the sum
+    SpMM over the edge weights val * norm[row] * norm[col], no self term.
+    The weighted graph keeps the transpose permutation, so its backward is
+    the transpose-permutation one: the weights are symmetric wherever the
+    values are."""
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        if self.aggr != "gcn":
+            return spmm(g, x, self.aggr)
+        norm = torch.rsqrt(1.0 + g.value_rowsum()).to(x.dtype)
+        gw = g.with_values(g.val * norm[g.row] * norm[g.col])
+        return spmm(gw, x, "sum")
+
+
 class GCNConvLike(nn.Module):
     """out = prop(A~, x W) + b, where prop is D^-1/2 (A+I) D^-1/2 when
     ``normalize``, else the raw aggregation."""
@@ -51,22 +73,36 @@ class GCNConvLike(nn.Module):
         return out + self.bias
 
 
-def make_conv(name: str, in_features: int, features: int):
-    """The "ts" conv registry; None for "none"."""
+class LinConv(nn.Module):
+    """relu(PureConvV2(aggr)(x) W): aggregation first, then a bias-free
+    Linear and a ReLU."""
+
+    def __init__(self, in_features: int, features: int, aggr: str = "gcn"):
+        super().__init__()
+        self.conv = PureConvV2(aggr)
+        self.lin = Dense(in_features, features, bias=False)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        return torch.relu(self.lin(self.conv(x, g)))
+
+
+_AGGR = {"gcn": "gcn", "gcn_cached": "gcn", "sage": "mean", "gin": "sum",
+         "max": "max"}
+
+
+def make_conv(name: str, in_features: int, features: int, stack: str = "ts"):
+    """The conv registries: ``stack="ts"`` the torch_sparse one, ``"ho"``
+    the pygho one (one registry serves the reference's GCN2 and GCN3, whose
+    registries differ only in an autocast guard).  None for "none"."""
     if name == "none":
         return None
-    table = {
-        "gcn": lambda: GCNConvLike(in_features, features, "sum", normalize=True),
-        "gcn_cached": lambda: GCNConvLike(in_features, features, "sum", normalize=True),
-        "sage": lambda: GCNConvLike(in_features, features, "mean", normalize=False),
-        "gin": lambda: GCNConvLike(in_features, features, "sum", normalize=False),
-        "max": lambda: GCNConvLike(in_features, features, "max", normalize=False),
-        "puremax": lambda: PureConv("max"),
-        "puresum": lambda: PureConv("sum"),
-        "puremean": lambda: PureConv("mean"),
-        "puregcn": lambda: PureConv("gcn"),
-    }
-    return table[name]()
+    if name.startswith("pure"):
+        return (PureConv if stack == "ts" else PureConvV2)(name.removeprefix("pure"))
+    aggr = _AGGR[name]
+    if stack == "ts":
+        return GCNConvLike(in_features, features, "sum" if aggr == "gcn" else aggr,
+                           normalize=aggr == "gcn")
+    return LinConv(in_features, features, aggr)
 
 
 CONV_NAMES = (

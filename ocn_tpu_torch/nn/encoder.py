@@ -1,4 +1,7 @@
-"""GNN encoder (port of ocn_tpu/nn/encoder.py GCNEncoder, "ts" stack).
+"""GNN encoder (port of ocn_tpu/nn/encoder.py GCNEncoder): the reference's
+GCN ("ts" stack) and GCN2/GCN3 ("ho", the pygho stack), which differ only
+in their conv registry (nn/conv.py make_conv) and in that GCN2/GCN3 build
+DropAdj but never apply it: under "ho" ``edrop`` changes nothing.
 
 * input path: integer features (ppa/ddi) -> Embedding(max_x+1, hidden) with
   orthogonal init + Dropout(dropout); else Dropout(xdp) and, for "pure"
@@ -10,7 +13,8 @@
 * optional residual (when shapes match) and JumpingKnowledge with *raw*
   learned weights: x = sum_l jkparams[l] * x_l.
 
-DropAdj masks the graph's values per layer, drawing from the generator.
+DropAdj ("ts" only) masks the graph's values per layer, drawing from the
+generator.
 
 Under Config.dtype="bfloat16" the node features arrive in bfloat16, as in
 the JAX package: the xdp dropout scales them in bfloat16 (x / keep rounds
@@ -25,7 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ocn_tpu_torch.nn.conv import PureConv, make_conv
+from ocn_tpu_torch.nn.conv import make_conv
 from ocn_tpu_torch.nn.mlp import Dense, dropout, layer_norm, reset_parameters
 from ocn_tpu_torch.sparse.csr import Graph
 
@@ -35,12 +39,14 @@ class GCNEncoder(nn.Module):
                  dropout: float = 0.3, ln: bool = False, res: bool = False,
                  max_x: int = -1, conv_fn: str = "gcn", jk: bool = False,
                  edrop: float = 0.0, xdropout: float = 0.0,
-                 taildropout: float = 0.0, noinputlin: bool = False):
+                 taildropout: float = 0.0, noinputlin: bool = False,
+                 stack: str = "ts"):
         super().__init__()
         self.hidden, self.num_layers = hidden, num_layers
         self.p, self.xp, self.tp, self.edrop = dropout, xdropout, taildropout, edrop
         self.ln, self.res, self.jk, self.max_x = ln, res, jk, max_x
         self.conv_fn = conv_fn
+        self.apply_adjdrop = stack == "ts"
         self.pure = "pure" in conv_fn
         self.emb = nn.Embedding(max_x + 1, hidden) if max_x >= 0 else None
         self.inputlin = None
@@ -54,13 +60,10 @@ class GCNEncoder(nn.Module):
             self.jkparams = None
             return
         for i in range(num_layers):
-            if self.pure:
-                self.convs.append(PureConv(conv_fn.removeprefix("pure")))
-            else:
-                self.convs.append(make_conv(conv_fn, width, hidden))
-                width = hidden
-                if ln and (i < num_layers - 1 or num_layers == 1):
-                    self.norms.append(layer_norm(hidden))
+            self.convs.append(make_conv(conv_fn, width, hidden, stack))
+            width = hidden
+            if not self.pure and ln and (i < num_layers - 1 or num_layers == 1):
+                self.norms.append(layer_norm(hidden))
         self.jkparams = nn.Parameter(torch.empty(num_layers)) if jk else None
         self.reset_parameters()
 
@@ -92,7 +95,8 @@ class GCNEncoder(nn.Module):
             return x
         jkx = []
         for i, conv in enumerate(self.convs):
-            gg = g.drop_edges(self.edrop, gen) if train and self.edrop > 1e-6 else g
+            drop = train and self.apply_adjdrop and self.edrop > 1e-6
+            gg = g.drop_edges(self.edrop, gen) if drop else g
             x1 = conv(x, gg)
             last = i == self.num_layers - 1
             if self.pure:

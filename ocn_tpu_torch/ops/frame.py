@@ -7,9 +7,11 @@ batch then shares one index array ``ids`` (B, K) int32 (sentinel n_nodes on
 empty lanes) and differs only in its value array (B, K):
 
     cn1.val[b, k] = w_i[b,k] * [ids[b,k] in N(j_b)]
-    cn2.val[b, k] = w_i[b,k] * [A^2[j_b, ids[b,k]] > 0]   (capped A^2 rows)
+    cn2.val[b, k] = w_i[b,k] * [A^2[j_b, ids[b,k]] > 0]
 
-where w_i is the degree-cap importance weight (deg/K for capped rows).
+where w_i is the degree-cap importance weight (deg/K for capped rows), and
+A^2[j, k] is read from precomputed capped rows ("gather" mode) or counted
+on the fly as |N(k) & N(j)| ("sddmm" mode).
 Entries with value 0 are absent, so masked adjacency entries drop out by
 value.  The membership lookups run through ops/membership.py and the
 window-table frame matmul through ops/window_gather.py (the CUDA kernels on
@@ -17,8 +19,8 @@ the card).
 
 cn6's third frame (``cn3_frame``) reads a precomputed A^3 the same way.
 
-Not ported yet: the iid sampler, lane DropAdj, the SDDMM two-hop path of
-cn_frames and the residual frames of the incomplete family.
+Not ported yet: the iid sampler, lane DropAdj and the residual frames of
+the incomplete family.
 """
 from __future__ import annotations
 
@@ -349,6 +351,22 @@ def matmul_shared(frames: List[CNFrame], x: torch.Tensor,
     return list(out.unbind(0))
 
 
+def _count2(g: Graph, cand: torch.Tensor, dst_ids: torch.Tensor,
+            dst_w: torch.Tensor, k2: int,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """A^2[j, cand] on the fly: |N(cand) & N(j)|, weighted, for candidates
+    (C, K) against the dst frame (C, K2) of j.  Each candidate's K2-capped
+    neighbor list is looked up in N(j): (C, K*K2) queries against K2 ids.
+    Sentinel candidates gather the last row; their lanes carry src.w == 0,
+    so the caller zeroes them."""
+    c, kk = cand.shape
+    nbr = gather_neighbors(g, torch.clamp(cand, max=g.n_nodes - 1).reshape(-1),
+                           k2, gen)
+    m = _rowwise_membership(nbr.ids.reshape(c, kk * k2), dst_ids, dst_w)
+    contrib = torch.where(m != 0, nbr.w.reshape(c, kk * k2), 0.0)
+    return contrib.reshape(c, kk, k2).sum(-1)
+
+
 def cn_frames(
     g: Graph,
     tar_ei: torch.Tensor,
@@ -361,38 +379,57 @@ def cn_frames(
     cn2_counts: bool = False,
     exact_two_hop: bool = False,
     with_src: bool = False,
+    count2_chunk: int = 0,
 ):
-    """cn1 and cn2 frames for target edges ``tar_ei`` (2, B), A^2 "gather"
-    mode; with ``with_src`` also the candidate frame N(i) itself (its CSR
-    window positions feed the window-table frame matmul).
+    """cn1 and cn2 frames for target edges ``tar_ei`` (2, B); with
+    ``with_src`` also the candidate frame N(i) itself (its CSR window
+    positions feed the window-table frame matmul).
 
     cn1[b, k] != 0 iff candidate k is a 1-hop common neighbor of (i, j);
-    cn2[b, k] != 0 iff candidate k is a neighbor of i with A^2[j, k] > 0,
-    read from the precomputed row-capped ``adj2`` (its path count itself
-    with ``cn2_counts``; ``exact_two_hop`` drops 1-hop neighbors of j).
-    ``k2`` caps the A^2 rows and, unless ``k2_dst`` is set, N(j).
-    ``self_corr`` (B,): maskinput correction, subtracted from the A^2
-    counts because the removed target edge (i, j) still contributes one
-    j-i-k path for every candidate k in N(i).  Capped rows sample their
-    window offsets from ``gen`` (src, dst, then A^2 row)."""
-    if adj2 is None:
-        raise NotImplementedError(
-            "cn_frames without a precomputed A^2 (two_hop_mode='sddmm') is "
-            "not ported yet")
+    cn2[b, k] != 0 iff candidate k is a neighbor of i with A^2[j, k] > 0
+    (the path count itself with ``cn2_counts``; ``exact_two_hop`` drops
+    1-hop neighbors of j).  ``k2`` caps N(j) and the two-hop lists.
+
+    "gather" mode (``adj2`` given): A^2[j, k] is a membership lookup in the
+    precomputed row-capped A^2, whose rows are k2 wide; ``k2_dst``, when
+    set, caps N(j) instead of k2, since only cn1 reads it there.
+    ``self_corr`` (B,): maskinput correction, subtracted from the counts
+    because the removed target edge (i, j) still contributes one j-i-k path
+    for every candidate k in N(i).
+
+    "sddmm" mode (``adj2`` None): A^2[j, k] = |N(k) & N(j)| is counted on
+    the masked ``g`` itself (so no self_corr), over k2-capped lists, in
+    edge chunks of ``count2_chunk`` (0: one chunk) padded with sentinel
+    rows; N(j) keeps k2 since it anchors the counts.
+
+    Capped rows sample their window offsets from ``gen``: src, dst, then
+    the A^2 rows or the candidates' lists."""
     k2 = k2 or k
     src = gather_neighbors(g, tar_ei[0], k, gen)
-    dst = gather_neighbors(g, tar_ei[1], k2_dst or k2, gen)
+    kd = (k2_dst or k2) if adj2 is not None else k2
+    dst = gather_neighbors(g, tar_ei[1], kd, gen)
 
     # cn1: membership of candidates (N(i)) in N(j)
     in_dst = _rowwise_membership(src.ids, dst.ids, dst.w)
     cn1_val = torch.where((in_dst != 0) & (src.w != 0), src.w, 0.0)
     cn1 = CNFrame(ids=src.ids, val=cn1_val, n_nodes=g.n_nodes)
 
-    # cn2: membership in the precomputed, row-capped A^2
-    a2row = gather_neighbors(adj2, tar_ei[1], k2, gen)
-    counts = _rowwise_membership(src.ids, a2row.ids, a2row.w)
-    if self_corr is not None:
-        counts = torch.clamp(counts - self_corr[:, None], min=0.0)
+    if adj2 is not None:
+        # cn2: membership in the precomputed, row-capped A^2
+        a2row = gather_neighbors(adj2, tar_ei[1], k2, gen)
+        counts = _rowwise_membership(src.ids, a2row.ids, a2row.w)
+        if self_corr is not None:
+            counts = torch.clamp(counts - self_corr[:, None], min=0.0)
+    else:
+        b = src.ids.shape[0]
+        cc = count2_chunk if 0 < count2_chunk < b else b
+        pad = -b % cc
+        ci = torch.nn.functional.pad(src.ids, (0, 0, 0, pad), value=g.n_nodes)
+        di = torch.nn.functional.pad(dst.ids, (0, 0, 0, pad), value=g.n_nodes)
+        dw = torch.nn.functional.pad(dst.w, (0, 0, 0, pad))
+        counts = torch.cat([
+            _count2(g, ci[s:s + cc], di[s:s + cc], dw[s:s + cc], k2, gen)
+            for s in range(0, b + pad, cc)])[:b]
     if exact_two_hop:
         counts = torch.where(in_dst != 0, 0.0, counts)
     base = counts if cn2_counts else (counts > 0).float()

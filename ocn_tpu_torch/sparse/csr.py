@@ -43,7 +43,8 @@ class Graph:
              drops it (the table holds copies of the values).
 
     nnz counts GATHER_PAD zero-valued tail entries.  Gather-only graphs (the
-    A^2 table) carry indptr/deg/packed and leave col/row/val/tpos None.
+    A^2 and A^3 tables) carry indptr/deg/packed, or indptr/deg/col/val when
+    the values do not pack, and leave the rest None.
     """
 
     indptr: torch.Tensor
@@ -137,8 +138,12 @@ def graph_from_numpy(
     """Lift host CSR arrays (sparse/build.py) into a CPU-tensor Graph.
 
     ``gather_only=True`` keeps only indptr/deg/packed when the values pack
-    into the col|val int32 layout (4 bytes per entry instead of 16-20); it
-    falls back to the full layout when they do not."""
+    into the col|val int32 layout (4 bytes per entry instead of 16-20), and
+    indptr/deg/col/val (8 bytes) when they do not: path counts of hub pairs
+    can pass the packing limit 2^(31 - col_bits).  The JAX package keeps
+    the full layout there, whose row and transpose permutation no gather
+    reads and whose host sort dominates the set-up at hundreds of millions
+    of entries."""
     indptr = np.asarray(indptr, np.int32)
     col = np.asarray(col, np.int32)
     deg = (indptr[1:] - indptr[:-1]).astype(np.int32)
@@ -158,10 +163,12 @@ def graph_from_numpy(
         else:
             col_bits = 0
     t = torch.from_numpy
-    if gather_only and packed is not None:
-        return Graph(indptr=t(indptr), col=None, row=None, val=None,
-                     deg=t(deg), n_nodes=int(n_nodes), tpos=None,
-                     packed=t(packed), col_bits=col_bits)
+    if gather_only:
+        return Graph(indptr=t(indptr), deg=t(deg), n_nodes=int(n_nodes),
+                     col=None if packed is not None else t(col), row=None,
+                     val=None if packed is not None else t(val), tpos=None,
+                     packed=t(packed) if packed is not None else None,
+                     col_bits=col_bits)
     row = np.repeat(np.arange(n_nodes, dtype=np.int32), deg)
     csc = np.lexsort((row, col[:nnz]))
     tpos = np.empty(nnz, np.int32)

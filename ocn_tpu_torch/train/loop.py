@@ -1,5 +1,5 @@
 """Training/eval engine (port of ocn_tpu/train/loop.py for the frame-based
-predictors cn1 and cn5-cn9).
+predictors cn1 and cn5-cn9, under either encoder stack).
 
 One training step:
 
@@ -33,6 +33,12 @@ Five layout options of the JAX package are ported:
   2*batch_size links, in one cn_frames call, i.e. one frame group of every
   chunk of the step (it turns the dual-K split off).
 
+``two_hop_mode="sddmm"`` builds no A^2 (and no A^3): cn_frames counts the
+two-hop paths on the fly on the masked graph, cn6 takes cn3_frame's
+on-the-fly fallback, and the ELL tables stay off (they need A^2), as in the
+JAX package.  ``count2_chunk`` reaches no cn_frames call there either: the
+JAX trainer does not pass it.
+
 cn6 (THREE_HOP) adds a third frame from A^3 = A^2 @ A, built once on the
 host and capped at adj3_cap per row, with its own ELL table (``tbl3``,
 k3 wide); it is never grouped or hoisted, though the dual-K split still
@@ -46,8 +52,9 @@ Randomness (dropout, DropAdj, window offsets of capped rows off the tables)
 comes from one ``torch.Generator`` per epoch, seeded from the host NumPy
 generator that also draws the batch permutation and negatives, exactly as
 ocn_tpu draws its PRNG key; the ELL offsets come from a NumPy generator
-derived from the epoch number.  Not ported yet: the incomplete family
-(cn2/cn3/cn4), meshes (Config.require_supported).
+derived from the epoch number.  ``evaluate`` gives Hits@K, ``evaluate_mrr``
+the citation2 MRR.  Not ported yet: the incomplete family (cn2/cn3/cn4),
+meshes (Config.require_supported).
 """
 from __future__ import annotations
 
@@ -142,16 +149,20 @@ class Trainer:
 
         # precomputed A^2 for the "gather" two-hop mode: one host SpGEMM per
         # graph instead of the reference's per-batch SpGEMM
-        t0 = time.perf_counter()
-        self.adj2 = self._build_adj2(g_host, keep_host=cfg.predictor in THREE_HOP)
-        self.full_adj2 = (self._build_adj2(full_host) if full_host is not None
-                          else self.adj2)
-        self.adj2_seconds = time.perf_counter() - t0
+        self.adj2 = self.full_adj2 = None
+        self.adj2_seconds = 0.0
+        if cfg.two_hop_mode == "gather":
+            t0 = time.perf_counter()
+            self.adj2 = self._build_adj2(g_host,
+                                         keep_host=cfg.predictor in THREE_HOP)
+            self.full_adj2 = (self._build_adj2(full_host)
+                              if full_host is not None else self.adj2)
+            self.adj2_seconds = time.perf_counter() - t0
         # cn6: A^3 = A^2 @ A once per (train) graph, so its 3-hop counts are
         # one row gather and one membership lookup per chunk
         self.adj3 = None
         self.adj3_seconds = 0.0
-        if cfg.predictor in THREE_HOP:
+        if cfg.predictor in THREE_HOP and self.adj2 is not None:
             t0 = time.perf_counter()
             self.adj3 = self._build_adj3(g_host)
             self.adj3_seconds = time.perf_counter() - t0
@@ -170,6 +181,7 @@ class Trainer:
         # _refresh_ell) and rebuilt every cfg.ell_refresh epochs
         self._ell = None
         self._use_ell = bool(cfg.ell_tables and self.g.packed is not None
+                             and self.adj2 is not None
                              and self.adj2.packed is not None)
 
     def _build_adj2(self, g: Graph, keep_host: bool = False) -> Graph:
@@ -178,8 +190,8 @@ class Trainer:
         ip2, col2, val2 = B.adj2_csr(ip, col, g.n_nodes, cap=self.cfg.adj2_cap)
         if keep_host:  # the host CSR feeds cn6's A^3 SpGEMM
             self._adj2_host = (ip2, col2, val2)
-        # consumed only through packed window gathers: upload indptr/deg/
-        # packed alone (4 bytes per entry)
+        # consumed only through window gathers: upload indptr/deg and the
+        # packed entries (4 bytes each), or col/val where counts do not pack
         return graph_from_numpy(ip2, col2, g.n_nodes, val2,
                                 gather_only=True).to(self.device)
 
@@ -275,7 +287,7 @@ class Trainer:
             num_layers=cfg.mplayers, dropout=cfg.gnndp, ln=cfg.ln, res=cfg.res,
             max_x=self.ds.max_x, conv_fn=cfg.model, jk=cfg.jk,
             edrop=cfg.gnnedp, xdropout=cfg.xdp, taildropout=cfg.tdp,
-            noinputlin=cfg.loadx)
+            noinputlin=cfg.loadx, stack=cfg.encoder_stack)
         encoder.reset_parameters(gen)
         predictor = build_predictor(cfg.predictor, cfg.hiddim, cfg.hiddim,
                                     n_nodes=self.ds.n_nodes,
@@ -296,7 +308,7 @@ class Trainer:
         return _largest_divisor_leq(cfg.batch_size, target)
 
     def _score_chunk(self, state: TrainState, h, g: Graph, edges, valid, gen,
-                     training: bool, adj2: Graph, corr=None, y=None,
+                     training: bool, adj2: Optional[Graph], corr=None, y=None,
                      k: Optional[int] = None, grp: int = 1,
                      adj3: Optional[Graph] = None) -> torch.Tensor:
         """Score ``grp`` chunks of C links, (2, grp*C) edges; returns
@@ -306,7 +318,8 @@ class Trainer:
         first-k window).  ``y``: the window table h.detach()[g.col] (the
         frame matmul then reads the candidate frame's CSR windows of it).
         ``k``: candidate-frame width (the dual-K small body), default
-        pad_deg.  ``adj3``: cn6's A^3 (its third frame, cn3_frame).
+        pad_deg.  ``adj2`` None: the "sddmm" mode.  ``adj3``: cn6's A^3 (its
+        third frame, cn3_frame; None takes the on-the-fly fallback).
 
         ``grp`` > 1 is the port of _scan_scores_grouped (and, a group of
         every chunk of the step, of _scan_scores_hoisted): one cn_frames call
@@ -365,7 +378,7 @@ class Trainer:
             return g.with_ell(tbl, mp["off1"])
         return self.g.mask_edges(mask_positions)
 
-    def _local_adj2(self, mask_positions) -> Graph:
+    def _local_adj2(self, mask_positions) -> Optional[Graph]:
         """A^2 of one step: no maskinput edit (cn_frames' self-path
         correction handles it), but its gathers ride the ELL table when the
         tables are on."""
@@ -570,7 +583,7 @@ class Trainer:
 
     @torch.no_grad()
     def _score_batches(self, state: TrainState, h, g: Graph, edges: np.ndarray,
-                       adj2: Graph, k: Optional[int] = None,
+                       adj2: Optional[Graph], k: Optional[int] = None,
                        fold0: int = 0) -> np.ndarray:
         """Score (n, 2) edges in fixed (2, testbs) batches at frame width
         ``k`` (None = pad_deg); the ragged tail is padded and value-masked
@@ -605,7 +618,7 @@ class Trainer:
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
 
     def _score_split(self, state: TrainState, h, g: Graph, edges: np.ndarray,
-                     adj2: Graph) -> np.ndarray:
+                     adj2: Optional[Graph]) -> np.ndarray:
         """Scores of one eval split.  With the dual-K split at eval the
         split is sorted by source degree once, full testbs batches of
         sources with degree <= k_small (in the graph being scored) run at
@@ -673,3 +686,22 @@ class Trainer:
             )
             for k in (20, 50, 100)
         }
+
+    def evaluate_mrr(self, state: TrainState) -> Dict[str, float]:
+        """citation2's MRR: each valid and test source scored against its
+        target and against its row of ``target_node_neg``, on the train
+        graph; {"valid": mrr, "test": mrr}."""
+        se = self.ds.split_edge
+        h = self.encode(state)
+        g, a2 = self._eval_graphs()
+        out = {}
+        for part in ("valid", "test"):
+            src = se[part]["source_node"]
+            negs = se[part]["target_node_neg"]  # (n, num_neg)
+            pos = self._score_split(
+                state, h, g, np.stack([src, se[part]["target_node"]], 1), a2)
+            n, m = negs.shape
+            flat = np.stack([np.repeat(src, m), negs.reshape(-1)], 1)
+            neg = self._score_split(state, h, g, flat, a2).reshape(n, m)
+            out[part] = M.mrr(pos, neg)
+        return out

@@ -1,16 +1,16 @@
-"""The card's own time, from ``torch.profiler``: a kernel's device time
-apart from the Python wrapper that launches it, and where the device time
-of a training step goes.
+"""The card's own time: a kernel's device time apart from the Python
+wrapper that launches it (CUDA events around calls queued behind a spin
+kernel), and where the device time of a training step goes
+(``torch.profiler``).
 
-Kernels launched from the port's ctypes libraries appear in the trace
-under their CUDA names (``window_rows_kernel``, ``membership_kernel``, ...),
-like PyTorch's own.  ``chip_smoke.py`` reads these numbers; the CUDA events
-it also takes time whole calls, wrapper included.
+Kernels launched from the port's ctypes libraries appear in the profiler's
+trace under their CUDA names (``window_rows_kernel``, ``membership_kernel``,
+...), like PyTorch's own.  ``chip_smoke.py`` reads these numbers; the CUDA
+events it also takes without a spin time whole calls, wrapper included.
 """
 from __future__ import annotations
 
 import collections
-import re
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -44,19 +44,44 @@ def profile_calls(fn: Callable[[], object], iters: int) -> List[Interval]:
     return device_intervals(prof)
 
 
-def kernel_device_ms(fn: Callable[[], object], pattern: str, iters: int = 50,
-                     warmup: int = 5) -> Tuple[float, int]:
-    """Mean device time in ms of the kernels whose name matches the regular
-    expression ``pattern`` over ``iters`` calls of ``fn``, and how many the
-    trace holds (the profiler can miss the first few).  Raises if none."""
+def queued_device_ms(fn: Callable[[], object], iters: int = 50, warmup: int = 5,
+                     spin_cycles: int = 1 << 24) -> float:
+    """The card's time in ms for one call of ``fn``, apart from the host's:
+    ``iters`` calls queued behind a spin kernel, so that the card runs them
+    back to back, timed by CUDA events around them.  The spin doubles until
+    the host has queued every call before the card reaches the first.
+
+    The trace of ``torch.profiler`` is no substitute here: in a long process
+    it drops a growing share of a short window's kernels, every one of them
+    in the end, so a number read from it is not there when it is asked for."""
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(8):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        spin_cycles *= 2
+    raise RuntimeError(f"the host took longer to queue {iters} calls than "
+                       f"{spin_cycles // 2} cycles of spin")
+
+
+def kernel_names(fn: Callable[[], object], iters: int = 20) -> List[str]:
+    """The names of the device activities of ``iters`` calls of ``fn`` that
+    the profiler's trace holds (it can drop some; raises if it holds none)."""
     torch.cuda.synchronize()
-    hits = [(t1 - t0) for name, t0, t1 in profile_calls(fn, iters)
-            if re.search(pattern, name)]
-    if not hits:
-        raise RuntimeError(f"the profiler lists no kernel matching {pattern!r}")
-    return sum(hits) / len(hits) / 1e3, len(hits)
+    names = [name for name, _, _ in profile_calls(fn, iters)]
+    if not names:
+        raise RuntimeError("the profiler's trace holds no device activity")
+    return names
 
 
 def busy_us(intervals: Sequence[Interval], lo: float, hi: float) -> float:

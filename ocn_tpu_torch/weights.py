@@ -4,8 +4,8 @@
 parameter tree (``TrainState.params``: ``{"encoder": ..., "predictor":
 ...}``) and EMA collection (``TrainState.ema``) as nested dicts of NumPy
 arrays (``jax.device_get`` gives them) and copies them into a port
-``GCNEncoder`` and frame-based predictor (cn1, cn5-cn9), including the EMA
-buffers where the predictor has them.  Dense
+``GCNEncoder`` (either conv stack) and frame-based predictor (cn1,
+cn5-cn9), including the EMA buffers where the predictor has them.  Dense
 kernels (in, out) are transposed into Linear weights (out, in); LayerNorm
 ``scale``/``bias`` become ``weight``/``bias``.  Every leaf of the tree must
 land somewhere, and every shape must match: a mismatch raises.
@@ -61,6 +61,9 @@ def load_encoder(enc: nn.Module, p: Mapping) -> None:
             conv = enc.convs[int(i)]
             _load_dense(conv.lin, sub["Dense_0"], f"encoder/{key}/Dense_0")
             _copy(conv.bias, sub["bias"], f"encoder/{key}/bias")
+        elif kind == "LinConv":  # the "ho" stack; its PureConvV2 has none
+            _load_dense(enc.convs[int(i)].lin, sub["Dense_0"],
+                        f"encoder/{key}/Dense_0")
         elif kind == "LayerNorm":
             _load_norm(enc.norms[int(i)], sub, f"encoder/{key}")
         elif key == "Dense_0":

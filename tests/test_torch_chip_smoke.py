@@ -171,3 +171,65 @@ def test_step_breakdown_ranks_kernels():
     assert out["top_kernels"] == [
         {"name": "gemm", "ms": 0.4, "launches": 1},
         {"name": "copy", "ms": 0.2, "launches": 2}]
+
+
+def test_ho_and_sddmm_phases_on_cpu(on_cpu, capsys):
+    """bench.py's ppa and citation2 shapes and the spd preset at a tiny
+    size, with the launch counts the card run asserts: two membership
+    lookups per frame group of 8 chunks of 128 (ppa's split does not
+    engage: no node has degree <= 16), one per chunk in the SDDMM mode."""
+    small = dict(batch_size=1024, testbs=1024, linkbatchsize=128, hiddim=16)
+    ppa, pdata = chip_smoke.new_dataset("ppa", 0.002, 4096, 1024)
+    p_train, p_eval, p_shapes = chip_smoke.phase_shape_slice("ppa_slice", ppa,
+                                                             pdata, **small)
+    c2, cdata = chip_smoke.new_dataset("citation2", 0.002, 4096, 48)
+    c_train, c_eval, c_shapes = chip_smoke.phase_shape_slice("citation2_slice", c2,
+                                                             cdata, **small)
+    s_train, s_eval, s_shapes = chip_smoke.phase_spd_slice(
+        c2, batch_size=512, testbs=512, linkbatchsize=128, hiddim=16)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [line["phase"] for line in lines] == [
+        "ppa_slice", "citation2_slice", "spd_slice"]
+    ppa_line, c2_line, spd = lines
+    assert ppa_line["split"] is None and ppa_line["groups_per_step"] == 2
+    assert p_train["membership_launches_per_step"] == [4] * 3
+    assert {s[0] for s in p_train["membership_shapes_train"]} == {8 * 128}
+    assert ppa_line["adj2_nnz"] > 0 and ppa_line["adj2_device_gb"] > 0
+    assert c2_line["split"] and c2_line["groups_per_step"] == 2
+    assert c_train["membership_launches_per_step"] == [4] * 3
+    assert c2_line["mrr_sources"] == {"valid": 48, "test": 48}
+    assert set(c_eval["mrr"]) == {"valid", "test"}
+    # 8 chunks a step, one lookup each; eval: (48 + 48 * 100) * 2 links in
+    # batches of 512
+    assert s_train["membership_launches_per_step"] == [8] * 3
+    assert s_eval["membership_launches_eval"] == 2 * (1 + -(-48 * 100 // 512))
+    assert s_train["membership_shapes_train"] == [[128, 64, 64, 24]]
+    assert set(s_shapes) == {(128, 64, 64), (512, 64, 64)}
+    assert spd["adj2"] is None and spd["config"]["two_hop_mode"] == "sddmm"
+    for line in lines:
+        assert np.isfinite(line["losses"]).all() and line["eval_s"] > 0
+    assert ppa_line["hits"].keys() == {"Hits@20", "Hits@50", "Hits@100"}
+    assert spd["mrr"].keys() == c2_line["mrr"].keys() == {"valid", "test"}
+    assert ppa_line["group_score_max_abs_err"] == 0.0
+    assert c2_line["group_score_max_abs_err"] == 0.0
+    assert spd["chunk_score_max_abs_err"] == 0.0
+
+
+def test_presets_phase_on_cpu(on_cpu, capsys):
+    """Every README preset key takes one step and one eval (MRR for
+    citation2) at a tiny scale."""
+    launches, shapes = chip_smoke.phase_presets_slice(
+        {}, scale=0.1, large_scale=0.002, eval_cut=256, mrr_cut=8,
+        batch_size=128, testbs=256, linkbatchsize=32, hiddim=16)
+    line = json.loads(capsys.readouterr().out)
+    assert line["phase"] == "presets_slice" and len(line["keys"]) == 16
+    for key, rec in line["keys"].items():
+        assert np.isfinite(rec["loss"]) and rec["step_ms"] > 0, key
+        res = rec["mrr"] if key.startswith("citation2") else {
+            k: v[1] for k, v in rec["hits"].items()}
+        assert all(0.0 <= v <= 1.0 for v in res.values()), key
+        assert rec["membership_launches_step"] > 0, key
+    assert line["keys"]["citation2/spd"]["adj2_host_build_s"] == 0.0
+    assert launches == sum(r["membership_launches_step"] + r["membership_launches_eval"]
+                           for r in line["keys"].values())
+    assert sum(shapes.values()) == launches

@@ -44,8 +44,7 @@ def test_config_defaults_and_fields_match():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("cndeg", 32), ("two_hop_mode", "sddmm"), ("encoder_stack", "ho"),
-    ("predictor", "cn2"), ("predictor", "cn3"), ("predictor", "cn4"),
+    ("cndeg", 32), ("predictor", "cn2"), ("predictor", "cn3"), ("predictor", "cn4"),
     ("dp_devices", 4), ("graph_sharding", "node"),
 ])
 def test_unported_fields_raise(field, value):
@@ -59,9 +58,23 @@ def test_unported_fields_raise(field, value):
     ("frame_group", 8), ("dtype", "bfloat16"), ("hoist_frames", True),
     ("predictor", "cn1"), ("predictor", "cn5"), ("predictor", "cn6"),
     ("predictor", "cn7"), ("predictor", "cn8"), ("predictor", "cn9"),
+    ("two_hop_mode", "sddmm"), ("encoder_stack", "ho"),
 ])
 def test_ported_fields_are_accepted(field, value):
     tcfg.require_supported(tcfg.Config(**{field: value}))
+
+
+@pytest.mark.parametrize("key", sorted(jcfg._README_PRESETS))
+def test_every_preset_is_supported(key):
+    tcfg.require_supported(tcfg.presets(*key))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("two_hop_mode", "spgemm"), ("encoder_stack", "pyg"), ("dtype", "float16"),
+])
+def test_unknown_values_are_refused(field, value):
+    with pytest.raises(ValueError, match=f"Config.{field}"):
+        tcfg.require_supported(tcfg.Config(**{field: value}))
 
 
 def test_collab_preset_needs_the_knobs_off():
@@ -171,6 +184,31 @@ def test_graph_from_numpy_matches(gather_only):
             assert (a is None) == (b is None), f
             if a is not None:
                 np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f)
+
+
+def test_gather_only_keeps_col_and_val_when_counts_do_not_pack():
+    """A^2 path counts past 2^(31 - col_bits) do not pack: the gather-only
+    graph then keeps indptr/deg/col/val (no row, no transpose permutation),
+    equal to the JAX package's full layout in those four, and its window
+    gathers read the same neighbor lists."""
+    from ocn_tpu.ops import frame as jf
+    from ocn_tpu_torch.ops import frame as tf
+
+    ds, ip, col = _host_graph(seed=2)
+    ip2, col2, val2 = tb.adj2_csr(ip, col, ds.n_nodes, 64)
+    val2 = val2 * 1.0e6  # counts of a huge graph: col_bits 9 leaves 22 bits
+    jg = jcsr.graph_from_numpy(ip2, col2, ds.n_nodes, val2, gather_only=True)
+    tg = tcsr.graph_from_numpy(ip2, col2, ds.n_nodes, val2, gather_only=True)
+    assert jg.packed is None and tg.packed is None
+    assert tg.row is None and tg.tpos is None and jg.row is not None
+    for f in ("indptr", "col", "val", "deg"):
+        np.testing.assert_array_equal(np.asarray(getattr(jg, f)),
+                                      getattr(tg, f).numpy(), err_msg=f)
+    nodes = np.arange(0, ds.n_nodes, 7)
+    a = jf.gather_neighbors(jg, jnp.asarray(nodes), 16)
+    b = tf.gather_neighbors(tg, torch.as_tensor(nodes), 16)
+    np.testing.assert_array_equal(np.asarray(a.ids), b.ids.numpy())
+    np.testing.assert_array_equal(np.asarray(a.w), b.w.numpy())
 
 
 def test_graph_edits_match():

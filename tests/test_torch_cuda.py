@@ -236,6 +236,25 @@ def test_window_rows_unaligned_table(cuda):
     assert ["window_rows_kernel" in n for n, _, _ in activities] == [True]
 
 
+def test_queued_device_ms_hides_the_host(cuda):
+    """Behind the spin, the card runs the calls back to back: a short
+    kernel's device time is below the wrapper's per-call time, and a call
+    that launches the kernel twice takes about twice as long."""
+    q, ids, w = (torch.as_tensor(a, device=cuda) for a in
+                 _inputs(np.random.default_rng(0), (4096,), 64, 64, 1000, False))
+    once = profiling.queued_device_ms(lambda: tm.membership_counts(q, ids, w))
+    twice = profiling.queued_device_ms(
+        lambda: (tm.membership_counts(q, ids, w), tm.membership_counts(q, ids, w)))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(200):
+        tm.membership_counts(q, ids, w)
+    end.record()
+    torch.cuda.synchronize()
+    assert 0 < once < start.elapsed_time(end) / 200
+    assert 1.5 * once < twice < 2.5 * once
+
+
 def test_window_rows_wrapper_rejects(cuda):
     y = torch.randn(100, 8, device=cuda)
     pos0 = torch.zeros(4, dtype=torch.int32, device=cuda)

@@ -76,6 +76,8 @@ def test_gather_neighbors_sampled_windows(graphs):
     (64, 64, None, False, False),    # every row exact
     (16, 32, 8, False, False),       # narrower dst cap (pad_deg2_dst)
     (16, 16, None, True, True),      # path counts, exactly-distance-2
+    (16, 16, None, True, False),     # path counts alone (the pygho stack)
+    (16, 16, None, False, True),     # exactly-distance-2 alone
 ])
 def test_cn_frames_match(graphs, k, k2, k2_dst, counts, exact2):
     tar = graphs["tar"]
