@@ -25,8 +25,11 @@ and the script exits nonzero:
              and hoisted cn5, then of the "ho" stack on ppa (Embedding
              input, path-count cn2, maskinput, ELL tables, dual-K) and on
              citation2 (randint-target negatives, MRR), and of the SDDMM
-             two-hop mode (the spd preset's exactly-distance-2 counts):
-             losses, Hits or MRR and eval scores compared.
+             two-hop mode (the spd preset's exactly-distance-2 counts), and
+             of the incomplete family on the tables: cn2 and cn3 (depth 1,
+             the blocked recursion), cn2 at depth 2 (the generic route) and
+             cn2 with the learnable pt: losses, Hits or MRR and eval scores
+             compared.
 4. slice   - the main path at full width: synthetic collab (scale 1.0,
              BFS-relabelled), the 3-layer gcn encoder with LN/res/JK at
              hidden 256, cn5 with pad_deg 64 / pad_deg2 64 and the host A^2
@@ -66,14 +69,27 @@ and the script exits nonzero:
 9. hoist_slice - bench.py's program with OCN_BENCH_HOIST=1 (cn5): three
              steps and one evaluate, membership exactly twice a step at
              2 * 65536 rows, the step's one group re-scored.
-10. variants_slice - bench.py's program with cn1, cn8 and cn9: one step
-             and one evaluate each.
+10. variants_slice - bench.py's program with cn1, cn8, cn9 and cn5 with
+             cndeg 32: one step and one evaluate each; then one train_epoch
+             of cn2 (family_slice's cut train split, three steps) at epoch 7
+             with increasealpha, whose alpha2 must read 0.2.
 11. presets_slice - each of the 16 README preset keys, presets(dataset,
              predictor): a fresh Trainer, one step and one evaluate (MRR for
              citation2), Cora, Citeseer, Pubmed, ddi and collab at synthetic
              scale 1.0, ppa and citation2 at PRESET_SCALE; every split cut
              to its first EVAL_CUT rows (MRR: PRESET_MRR_CUT sources).
-12. ppa_slice - bench.py's ppa shape (bench.py:118-151): the 1-layer "ho"
+12. family_slice - the incomplete family on bench.py's program with
+             OCN_BENCH_PREDICTOR=cn2, then cn3, and OCN_BENCH_RECK=16: the
+             same model and dataset as bench_slice (ELL tables, k_small 16,
+             bfloat16 x), the recursion at rec_k 16 with trndeg 8 and
+             tstdeg 128, the train split cut to the links of its three
+             steps and every eval split to EVAL_CUT rows.  A timed ELL
+             refresh (and host A^2 for cn3), three steps and one evaluate at
+             testbs 65536 each; membership exactly FAMILY_LAUNCHES a chunk,
+             in training and in eval; the largest lookup's expanded query
+             bytes; one small-body and one big-body chunk re-scored with the
+             plain version.
+13. ppa_slice - bench.py's ppa shape (bench.py:118-151): the 1-layer "ho"
              gcn at hidden 64 on synthetic ppa (integer features, BFS-
              relabelled) at PPA_SCALE, path-count cn2, batch 16384 in chunks
              of 512, k_small 16 (the split does not engage: no ppa node has
@@ -83,27 +99,27 @@ and the script exits nonzero:
              the JAX package).  Three steps and one evaluate over splits cut
              to EVAL_CUT rows; membership exactly twice per frame group; one
              group re-scored.
-13. citation2_slice - bench.py's citation2 shape (bench.py:110-114): the
+14. citation2_slice - bench.py's citation2 shape (bench.py:110-114): the
              3-layer "ho" puregcn at hidden 64 on synthetic citation2 at
              scale 1.0, path-count cn2, randint-target negatives, batch
              32768 in chunks of 2048, A^2 capped at 128.  Three steps, then
              evaluate_mrr over the first MRR_CUT valid and test sources;
              membership exactly twice per frame group; one group re-scored.
-14. spd_slice - presets("citation2", "spd") at its own width: the 5-layer
+15. spd_slice - presets("citation2", "spd") at its own width: the 5-layer
              "ho" gcn at hidden 32, exactly-distance-2 counts in the SDDMM
              mode (no A^2, no ELL table) on the same dataset and MRR cut.
              Membership exactly once per chunk (cn1; the counts' lookup is
              past _COMPARE_LIMIT and takes the binary search); one chunk
              re-scored.
-15. membership_shapes - the membership kernel at each (rows, Kq, Ks) that
-             phases 6-14 launched: exact against its plain version with unit
+16. membership_shapes - the membership kernel at each (rows, Kq, Ks) that
+             phases 6-15 launched: exact against its plain version with unit
              weights, then timed beside its bound.
-16. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
+17. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
              at its full size (the three gather kernels of
              scripts/bench_gather.py on the card); each kernel must launch.
 
-The datasets of phases 12-14 are made in two worker processes while the
-card runs phases 1-11; their lines give the workers' seconds and the wait.
+The datasets of phases 13-15 are made in two worker processes while the
+card runs phases 1-12; their lines give the workers' seconds and the wait.
 Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits
 (or mrr), its membership launches (per step, in eval, by shape) and peak
 device memory (train and eval apart where both run); the phases on new
@@ -154,8 +170,19 @@ CN6_PATH = dict(BENCH_PATH, predictor="cn6")
 # and with OCN_BENCH_HOIST=1 (bench.py:99): the frames of the whole step in
 # one build, which turns the dual-K split off
 HOIST_PATH = dict(BENCH_PATH, hoist_frames=True)
-# the predictors variants_slice drives on bench.py's program
-VARIANTS = ("cn1", "cn8", "cn9")
+# the variants variants_slice steps on bench.py's program: cn1, cn8, cn9,
+# and cn5 with its CN sets capped at 32 lanes (cndeg)
+VARIANTS = (("cn1", {}), ("cn8", {}), ("cn9", {}),
+            ("cn5_cndeg32", dict(predictor="cn5", cndeg=32)))
+# bench.py's program with OCN_BENCH_PREDICTOR=cn3 or cn2 and
+# OCN_BENCH_RECK=16 (bench.py:102,150): the incomplete family takes no frame
+# groups (its split still rounds to whole groups of 8), no window table
+FAMILY_PATH = dict(BENCH_PATH, rec_k=16)
+# membership launches a chunk on the family's blocked route: cn2 looks up
+# N(i) in N(j) and back (2) and scores each residual set (2 blocked calls
+# of 1 lookup); cn3 adds the A^2 row of j and back (2 more) and scores four
+# residual sets (4 blocked calls of 2 lookups each: N and A^2)
+FAMILY_LAUNCHES = {"cn2": 2 + 2 * 1, "cn3": 4 + 4 * 2}
 # bench.py's per-dataset shapes (bench.py:110-128), on its own program
 PPA_SHAPE = dict(dataset="ppa", model="gcn", hiddim=64, mplayers=1,
                  encoder_stack="ho", cn2_counts=True, ln=False, res=False,
@@ -594,7 +621,12 @@ def phase_reference():
     maskinput, ELL tables, dual-K), on citation2 (randint-target
     negatives, MRR on 32 sources), and in the SDDMM mode on citation2 (the
     spd preset's exactly-distance-2 counts; no tables, so its caps sit above
-    every degree)."""
+    every degree).  Then two steps each of the incomplete family on the
+    tables with the dual-K split: cn2, cn3 (both at depth 1, the blocked
+    recursion at rec_k 8), cn2 at depth 2 (its depth-1 recursion takes the
+    generic route) and cn2 with the learnable pt; the residual caps sit at
+    the frame width and A^2's table is as wide as its row gather, so again
+    no stream is read."""
     from ocn_tpu_torch.config import Config
     from ocn_tpu_torch.data.loaders import synthetic_dataset
     from ocn_tpu_torch.ops import window_gather as W
@@ -643,6 +675,12 @@ def phase_reference():
             ho, dataset="citation2", two_hop_mode="sddmm", exact_two_hop=True,
             neg_mode="randint_target", maskinput=False, pad_deg=64,
             pad_deg2=64, k_small=0), 1, c2)]
+    fam = dataclasses.replace(tables, predictor="cn2", pad_deg2=32, rec_k=8,
+                              trndeg=32, tstdeg=32)
+    cases += [("cn2", fam, 1, ds),
+              ("cn3", dataclasses.replace(fam, predictor="cn3"), 1, ds),
+              ("cn2_depth2", dataclasses.replace(fam, depth=2), 1, ds),
+              ("cn2_learnpt", dataclasses.replace(fam, learnpt=True), 1, ds)]
     out = {"phase": "reference"}
     for name, cfg, epochs, ds in cases:
         valid = ds.split_edge["valid"]["edge"]
@@ -652,7 +690,8 @@ def phase_reference():
             if name == "plain" and (int(tr.g.deg.max()) > cfg.pad_deg
                                     or int(tr.adj2.deg.max()) > cfg.pad_deg2):
                 raise AssertionError("reference graph exceeds the frame caps")
-            if name in ("window", "cn6", "ppa", "citation2") and not (
+            if name in ("window", "cn6", "ppa", "citation2", "cn2", "cn3",
+                        "cn2_depth2", "cn2_learnpt") and not (
                     tr._use_ell and tr._split):
                 raise AssertionError(f"{name} reference: tables or split off")
             if name == "spd" and (tr.adj2 is not None
@@ -675,6 +714,8 @@ def phase_reference():
                 scores[dev] = tr._score_split(state, tr.encode(state), g, valid, a2)
             if name.endswith("window") and dev != "cpu" and W.window_rows.launches == 0:
                 raise AssertionError(f"{name} reference: the kernel never ran")
+        if not np.isfinite(losses[DEVICE] + losses["cpu"]).all():
+            raise AssertionError(f"{name} reference: non-finite losses {losses}")
         np.testing.assert_allclose(losses[DEVICE], losses["cpu"], rtol=1e-4)
         np.testing.assert_allclose(hits[DEVICE], hits["cpu"], rtol=1e-4)
         if scores:
@@ -1237,16 +1278,20 @@ def phase_hoist_slice(ds, nsteps=3, **overrides):
 
 
 def phase_variants_slice(ds, **overrides):
-    """bench.py's program with OCN_BENCH_PREDICTOR = cn1, cn8 and cn9: one
-    step and one evaluate each (cn1 and cn9 carry two (n_nodes, hidden)
-    one-hot weights)."""
+    """bench.py's program with OCN_BENCH_PREDICTOR = cn1, cn8 and cn9, and
+    cn5 with cndeg 32: one step and one evaluate each (cn1 and cn9 carry two
+    (n_nodes, hidden) one-hot weights).  Then cn2 on the family's program
+    with increasealpha: one train_epoch at epoch 7 over family_slice's cut
+    train split, after which alpha2 must read the ramp's 0.2."""
+    from ocn_tpu_torch.ops.membership import membership_counts
     from ocn_tpu_torch.train.loop import Trainer
 
     t0 = time.perf_counter()
     out, launches, shapes = {}, 0, collections.Counter()
     pos = neg = batches = None
-    for name in VARIANTS:
-        cfg = slice_config(**{**BENCH_PATH, "predictor": name, **overrides})
+    for name, extra in VARIANTS:
+        cfg = slice_config(**{**BENCH_PATH, "predictor": name, **extra,
+                              **overrides})
         tr = Trainer(cfg, ds, device=DEVICE)
         state = tr.init_state(0)
         tr._refresh_ell(np.random.default_rng(1))
@@ -1264,7 +1309,117 @@ def phase_variants_slice(ds, **overrides):
             "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"])}
         del tr, state
         torch.cuda.empty_cache()
+
+    cfg = slice_config(**{**FAMILY_PATH, "predictor": "cn2",
+                          "increasealpha": True, **overrides})
+    fds = family_cut(ds, cfg.batch_size)
+    tr = Trainer(cfg, fds, device=DEVICE)
+    state = tr.init_state(0)
+    membership_counts.launches = 0
+    membership_counts.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    te = time.perf_counter()
+    state, loss = tr.train_epoch(state, np.random.default_rng(0), 7)
+    torch.cuda.synchronize()
+    alpha2 = float(state.sched["alpha2"])
+    if not math.isfinite(loss) or abs(alpha2 - 0.2) > 1e-6:
+        raise AssertionError(f"cn2 epoch: loss {loss}, alpha2 {alpha2}")
+    launches += membership_counts.launches
+    shapes += membership_counts.shapes
+    out["cn2_increasealpha_epoch7"] = {
+        "epoch_s": time.perf_counter() - te, "loss": loss, "alpha2": alpha2,
+        "steps": len(fds.split_edge["train"]["edge"]) // cfg.batch_size,
+        "membership_launches": membership_counts.launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del tr, state
+    torch.cuda.empty_cache()
     emit({"phase": "variants_slice", "seconds": time.perf_counter() - t0, **out})
+    return launches, shapes
+
+
+def family_cut(ds, batch_size, nsteps=3):
+    """family_slice's dataset: the train split cut to the links of its
+    ``nsteps`` batches, every eval split to EVAL_CUT rows."""
+    return cut_splits(ds, nsteps * batch_size, EVAL_CUT)
+
+
+def phase_family_slice(ds, nsteps=3, **overrides):
+    """The incomplete family on bench.py's program (FAMILY_PATH), cn2 then
+    cn3, over family_cut(ds): set-up (the host A^2 for cn3, a timed ELL
+    refresh), ``nsteps`` steps and one evaluate each, with exactly
+    FAMILY_LAUNCHES membership launches a chunk in training and a batch in
+    eval, one small-body and one big-body chunk re-scored with the plain
+    version; returns (launches, shapes)."""
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    out, launches, shapes = {}, 0, collections.Counter()
+    for name in ("cn2", "cn3"):
+        per_chunk = FAMILY_LAUNCHES[name]
+        t1 = time.perf_counter()
+        cfg = slice_config(**{**FAMILY_PATH, "predictor": name, **overrides})
+        fds = family_cut(ds, cfg.batch_size, nsteps)
+        tr = Trainer(cfg, fds, device=DEVICE)
+        state = tr.init_state(0)
+        torch.cuda.synchronize()
+        t_trainer = time.perf_counter() - t1
+        if not (tr._use_ell and tr._split) or (tr.adj2 is None) != (name == "cn2"):
+            raise AssertionError(f"family slice {name}: tables {tr._use_ell}, "
+                                 f"split {tr._split}, A^2 {tr.adj2 is not None}")
+        t1 = time.perf_counter()
+        tr._refresh_ell(np.random.default_rng(1))
+        torch.cuda.synchronize()
+        t_ell = time.perf_counter() - t1
+        pos, neg, batches = step_batches(tr, fds, nsteps)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        state, train, s_train = drive_steps(tr, state, pos, neg, batches, gen)
+        chunks = 2 * cfg.batch_size // tr._chunk()
+        expect_launches(f"family_slice {name}",
+                        train["membership_launches_per_step"],
+                        [per_chunk * chunks] * nsteps)
+        # count the eval's testbs batches as _score_split hands them out
+        scored = []
+        score_batches = tr._score_batches
+
+        def counted(state, h, g, edges, *args, **kw):
+            scored.append(-(-len(edges) // cfg.testbs))
+            return score_batches(state, h, g, edges, *args, **kw)
+
+        tr._score_batches = counted
+        evals, s_eval = timed_eval(tr, state)
+        del tr._score_batches
+        if evals["membership_launches_eval"] != per_chunk * sum(scored):
+            raise AssertionError(
+                f"family slice {name}: {evals['membership_launches_eval']} "
+                f"membership launches over {sum(scored)} eval batches, "
+                f"expected {per_chunk} a batch")
+        nsp, _ = tr._split
+        err = rescore(tr, state, pos, neg, batches[-1], lambda pe, ne, c: [
+            (pe[:, :c], 1, cfg.k_small), (pe[:, nsp * c:(nsp + 1) * c], 1, None)],
+            per_chunk)
+        # the blocked scorer's lookups broadcast each anchor's row over its
+        # R candidates; the wrapper writes the expanded int32 queries out
+        rows, kq, _ = max(s_eval, key=lambda shape: shape[0])
+        out[name] = {
+            "trainer_init_s": t_trainer, "ell_refresh_s": t_ell,
+            "adj2_host_build_s": tr.adj2_seconds, "rec_k": tr.cfg.rec_k,
+            "split": list(tr._split), "membership_launches_per_chunk": per_chunk,
+            "eval_batches": sum(scored), **train, **evals,
+            "largest_lookup": [rows, kq], "largest_lookup_query_gb": 4 * rows * kq / 1e9,
+            "chunk_score_max_abs_err": err,
+            "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"])}
+        launches += sum(train["membership_launches_per_step"])
+        launches += evals["membership_launches_eval"]
+        shapes += s_train + s_eval
+        del tr, state
+        torch.cuda.empty_cache()
+    emit({"phase": "family_slice", "seconds": time.perf_counter() - t0,
+          "config": {k: getattr(cfg, k) for k in (
+              "model", "mplayers", "hiddim", "batch_size", "linkbatchsize",
+              "testbs", "pad_deg", "k_small", "rec_k", "trndeg", "tstdeg",
+              "depth", "dtype", "predp", "preedp", "use_xlin", "tailact")},
+          "split_rows": {part: {k: len(v) for k, v in d.items()}
+                         for part, d in fds.split_edge.items()}, **out})
     return launches, shapes
 
 
@@ -1540,7 +1695,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the ppa and citation2 datasets take minutes of NumPy on the host: two
-    # worker processes make them while the card runs phases 1-11
+    # worker processes make them while the card runs phases 1-12
     with ProcessPoolExecutor(max_workers=2,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         jobs = {"ppa": pool.submit(new_dataset, "ppa", PPA_SCALE, EVAL_CUT,
@@ -1588,6 +1743,9 @@ def run_phases(jobs) -> int:
     shapes = shapes + phase_shapes
     torch.cuda.empty_cache()
     new["presets_slice"], phase_shapes = phase_presets_slice({"collab": ds})
+    shapes = shapes + phase_shapes
+    torch.cuda.empty_cache()
+    new["family_slice"], phase_shapes = phase_family_slice(ds)
     shapes = shapes + phase_shapes
     del ds
     torch.cuda.empty_cache()

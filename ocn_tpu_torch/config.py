@@ -462,9 +462,6 @@ def require_supported(cfg: Config) -> None:
     """Raise NotImplementedError naming the first field whose value this
     slice of the port does not implement."""
     unsupported = (
-        ("cndeg", cfg.cndeg > 0, "CN-set degree caps"),
-        ("predictor", cfg.predictor in ("cn2", "cn3", "cn4"),
-         "the incomplete-CN family"),
         ("dp_devices", cfg.dp_devices * cfg.tp_devices > 1, "multi-device meshes"),
         ("graph_sharding", cfg.graph_sharding == "node", "node-sharded graphs"),
     )

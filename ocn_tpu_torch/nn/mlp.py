@@ -57,16 +57,20 @@ def layer_norm(n: int) -> nn.LayerNorm:
 
 class _Seq(nn.Module):
     """Shared forward for the Linear/LN/Dropout/ReLU stacks below: ``plan``
-    lists ("dense", i) | ("ln", i) | ("drop",) | ("relu",) steps."""
+    lists ("dense", i) | ("ln", i) | ("drop",) | ("relu",) steps.
+    ``training`` overrides the module's mode for the dropouts (the
+    incomplete family's recursion may score in either mode)."""
 
-    def forward(self, x, gen: Optional[torch.Generator] = None):
+    def forward(self, x, gen: Optional[torch.Generator] = None,
+                training: Optional[bool] = None):
+        training = self.training if training is None else training
         for step in self.plan:
             if step[0] == "dense":
                 x = self.dense[step[1]](x)
             elif step[0] == "ln":
                 x = self.norm[step[1]](x)
             elif step[0] == "drop":
-                x = dropout(x, self.p, self.training, gen)
+                x = dropout(x, self.p, training, gen)
             else:
                 x = torch.relu(x)
         return x

@@ -1,17 +1,20 @@
 """Predictor registry (port of ocn_tpu/nn/predictors/__init__.py).
 
-Every frame-based predictor is ported: cn1 (``CN1Predictor``), cn5 (OCN,
+Every predictor is ported: cn1 (``CN1Predictor``), cn5 (OCN,
 ``OCNPredictor``), cn6 (``OCN3HopPredictor``), cn7 and cn8
-(``OCNPPredictor``, cn8 without cn1's normalization) and cn9
-(``CN9Predictor``).  The incomplete family cn2/cn3/cn4 raises
-NotImplementedError.  ``PREDICTOR_NAMES`` keeps the full reference list so
-the CLI accepts the same flags as ocn_tpu.
+(``OCNPPredictor``, cn8 without cn1's normalization), cn9
+(``CN9Predictor``), and the incomplete family, cn2 and cn4
+(``IncompleteCNPredictor``; cn4, the reference's save-memory rewrite, is
+cn2) and cn3 (``IncompleteCNPredictor(higher_order=True)``).  The
+frame-based predictors take the CN frames that the trainer builds; the
+self-building family builds its own from (graph, target edges).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 from ocn_tpu_torch.nn.predictors.cn_3hop import OCN3HopPredictor
+from ocn_tpu_torch.nn.predictors.cn_incomplete import IncompleteCNPredictor
 from ocn_tpu_torch.nn.predictors.cn_ortho import CN1Predictor, OCNPredictor
 from ocn_tpu_torch.nn.predictors.cn_poly import CN9Predictor, OCNPPredictor
 
@@ -21,6 +24,8 @@ PREDICTOR_NAMES = ("cn1", "cn2", "cn3", "cn4", "cn5", "cn6", "cn7", "cn8", "cn9"
 FRAME_BASED = {"cn1", "cn5", "cn6", "cn7", "cn8", "cn9"}
 # predictors that need 3-hop frames as well
 THREE_HOP = {"cn6"}
+# predictors that build everything internally from (g, tar_ei)
+SELF_BUILDING = {"cn2", "cn3", "cn4"}
 
 
 def build_predictor(name: str, in_channels: int, hidden: int,
@@ -29,9 +34,6 @@ def build_predictor(name: str, in_channels: int, hidden: int,
     cn1 and cn9 need ``n_nodes`` (their one-hot first layers)."""
     if name not in PREDICTOR_NAMES:
         raise KeyError(f"unknown predictor {name!r}; choose from {PREDICTOR_NAMES}")
-    if name not in FRAME_BASED:
-        raise NotImplementedError(
-            f"predictor {name!r} is not ported to ocn_tpu_torch yet (ROADMAP.md)")
     common = dict(
         in_channels=in_channels,
         hidden=hidden,
@@ -56,6 +58,23 @@ def build_predictor(name: str, in_channels: int, hidden: int,
         return CN1Predictor(n_nodes=n_nodes, **common)
     if name == "cn6":
         return OCN3HopPredictor(**common)
+    if name in SELF_BUILDING:
+        trndeg, tstdeg = kw.get("trndeg", -1), kw.get("tstdeg", -1)
+        return IncompleteCNPredictor(
+            higher_order=(name == "cn3"),
+            alpha_init=kw.get("alpha", 1.0),
+            scale=kw.get("probscale", 5.0),
+            offset=kw.get("proboffset", 3.0),
+            trainresdeg=trndeg if trndeg > 0 else 8,
+            testresdeg=tstdeg if tstdeg > 0 else 128,
+            pt=kw.get("pt", 0.5),
+            learnablept=kw.get("learnpt", False),
+            depth=kw.get("depth", 1),
+            k=kw.get("k", 32),
+            rec_k=kw.get("rec_k", 0),
+            recursion_train_mode=kw.get("recursion_train_mode", True),
+            lane_drop=kw.get("lane_dropadj", True),
+            **common)
     if name in ("cn7", "cn8"):
         return OCNPPredictor(normalize_cn1=(name == "cn7"), **poly, **common)
     return CN9Predictor(n_nodes=n_nodes, **poly, **common)

@@ -17,15 +17,16 @@ value.  The membership lookups run through ops/membership.py and the
 window-table frame matmul through ops/window_gather.py (the CUDA kernels on
 the card).
 
-cn6's third frame (``cn3_frame``) reads a precomputed A^3 the same way.
+cn6's third frame (``cn3_frame``) reads a precomputed A^3 the same way,
+and the incomplete family (cn2/cn3/cn4) takes the CN set with its two
+residual sets from ``cn_residual_frames``.
 
-Not ported yet: the iid sampler, lane DropAdj and the residual frames of
-the incomplete family.
+Not ported yet: the iid sampler.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -56,7 +57,9 @@ class NeighborFrame:
 
 
 def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
-                     gen: Optional[torch.Generator] = None) -> NeighborFrame:
+                     gen: Optional[torch.Generator] = None,
+                     drop: Optional[Tuple[torch.Generator, float]] = None
+                     ) -> NeighborFrame:
     """The (<=k)-padded neighbor list of each node, "window" sampling.
 
     Rows with degree <= k are taken exactly; capped rows (degree > k) take a
@@ -68,7 +71,19 @@ def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
     With an ELL table attached (``g.ell``, sparse/ell.py) and k <= ell_k the
     windows come from the table, one row gather: their offsets were frozen
     when the table was built, so ``gen`` is ignored, and k < ell_k takes the
-    leading lanes of the frozen window."""
+    leading lanes of the frozen window.
+
+    ``drop=(gen, p)``: lane-mask DropAdj.  Each gathered lane is kept with
+    probability 1-p (one (B, k) uniform draw of that generator, after the
+    window offsets) and kept weights are scaled by 1/(1-p); the graph's
+    values stay as they are, so its packed and ELL layouts stay attached."""
+    if drop is not None:
+        frame = gather_neighbors(g, nodes, k, gen)
+        dgen, p = drop
+        keep = torch.rand(frame.w.shape, generator=dgen,
+                          device=frame.w.device) < 1.0 - p
+        return dataclasses.replace(
+            frame, w=torch.where(keep, frame.w * (1.0 / (1.0 - p)), 0.0))
     nodes = nodes.long()
     deg = g.deg[nodes]
     start = g.indptr[nodes]
@@ -169,6 +184,11 @@ class CNFrame:
     def inner(self, other: "CNFrame") -> torch.Tensor:
         """Sum of elementwise products over the shared pattern."""
         return torch.sum(self.val * other.val)
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """cn @ x for this frame alone; its ids need not be sorted (the
+        backward sorts them)."""
+        return matmul_shared([self], x)[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -477,3 +497,28 @@ def cn3_frame(g: Graph, tar_ei: torch.Tensor, src: NeighborFrame, k2: int,
     base = counts3 if counts else (counts3 > 0).float()
     val = torch.where(src.w != 0, src.w * base, 0.0)
     return CNFrame(ids=src.ids, val=val, n_nodes=g.n_nodes)
+
+
+def cn_residual_frames(g: Graph, tar_ei: torch.Tensor, k: int,
+                       gen: Optional[torch.Generator] = None,
+                       drop: Optional[Tuple[torch.Generator, float]] = None,
+                       with_src: bool = False):
+    """The CN set and both residual sets of target edges (i, j), for the
+    incomplete-CN predictors:
+
+        cn   = N(i) & N(j)   (on the src frame N(i))
+        res1 = N(i) \\ N(j)   (on the src frame)
+        res2 = N(j) \\ N(i)   (on the dst frame N(j))
+
+    ``with_src`` also returns the src NeighborFrame (cn3 builds its two-hop
+    frames on its ids).  Capped rows draw their window offsets from ``gen``
+    (src, then dst); ``drop=(gen, p)`` applies lane-mask DropAdj to each
+    frame, the src and dst masks drawn independently (src first)."""
+    src = gather_neighbors(g, tar_ei[0], k, gen, drop=drop)
+    dst = gather_neighbors(g, tar_ei[1], k, gen, drop=drop)
+    in_dst = _rowwise_membership(src.ids, dst.ids, dst.w)
+    in_src = _rowwise_membership(dst.ids, src.ids, src.w)
+    cn = CNFrame(src.ids, torch.where(in_dst != 0, src.w, 0.0), g.n_nodes)
+    res1 = CNFrame(src.ids, torch.where(in_dst == 0, src.w, 0.0), g.n_nodes)
+    res2 = CNFrame(dst.ids, torch.where(in_src == 0, dst.w, 0.0), g.n_nodes)
+    return (cn, res1, res2, src) if with_src else (cn, res1, res2)

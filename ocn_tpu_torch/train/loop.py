@@ -1,5 +1,5 @@
-"""Training/eval engine (port of ocn_tpu/train/loop.py for the frame-based
-predictors cn1 and cn5-cn9, under either encoder stack).
+"""Training/eval engine (port of ocn_tpu/train/loop.py for every predictor,
+cn1-cn9, under either encoder stack).
 
 One training step:
 
@@ -44,6 +44,19 @@ host and capped at adj3_cap per row, with its own ELL table (``tbl3``,
 k3 wide); it is never grouped or hoisted, though the dual-K split still
 rounds its small body to whole frame groups, as in the JAX package.
 
+The incomplete family (cn2/cn3/cn4, SELF_BUILDING) builds its own frames
+from (g, edges) in the predictor, per chunk: it takes no frame groups,
+hoisting or window table.  Only cn3 gets an A^2; the ELL tables cover g
+(and cn3's A^2), and the dual-K split routes low-degree chunks to an outer
+width of k_small (at eval by the larger degree of both endpoints).
+``rec_k`` -1 picks the recursion width from the graph (``_auto_rec_k``),
+and ``increasealpha`` ramps the family's alpha2 (``TrainState.sched``) at
+the start of each epoch.
+
+``cndeg`` > 0 caps the frame-based CN sets by ``sample_frame`` (which
+turns the window table's positions off: the sampled ids are no longer CSR
+windows).
+
 ``dtype="bfloat16"`` keeps the node features and the valid/correction
 planes in bfloat16; the first Dense promotes to float32 (nn/mlp.py), so
 h, the frames and every parameter are float32, as in the JAX package.
@@ -53,8 +66,8 @@ comes from one ``torch.Generator`` per epoch, seeded from the host NumPy
 generator that also draws the batch permutation and negatives, exactly as
 ocn_tpu draws its PRNG key; the ELL offsets come from a NumPy generator
 derived from the epoch number.  ``evaluate`` gives Hits@K, ``evaluate_mrr``
-the citation2 MRR.  Not ported yet: the incomplete family (cn2/cn3/cn4),
-meshes (Config.require_supported).
+the citation2 MRR.  Not ported yet: meshes and node sharding
+(Config.require_supported).
 """
 from __future__ import annotations
 
@@ -69,8 +82,10 @@ import torch
 from ocn_tpu_torch.config import Config, require_supported
 from ocn_tpu_torch.data.loaders import LinkDataset
 from ocn_tpu_torch.nn.encoder import GCNEncoder
-from ocn_tpu_torch.nn.predictors import THREE_HOP, build_predictor
+from ocn_tpu_torch.nn.predictors import (
+    FRAME_BASED, SELF_BUILDING, THREE_HOP, build_predictor)
 from ocn_tpu_torch.ops.frame import CNFrame, cn3_frame, cn_frames
+from ocn_tpu_torch.ops.sample import sample_frames
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse import ell as ELL
 from ocn_tpu_torch.sparse.csr import Graph, graph_from_numpy
@@ -125,6 +140,26 @@ class TrainState:
     predictor: torch.nn.Module
     opt: torch.optim.Optimizer
 
+    @property
+    def sched(self) -> Dict[str, torch.Tensor]:
+        """The predictor's schedule state (the JAX package's "sched"
+        collection): the incomplete family's alpha2 buffer, else empty."""
+        alpha2 = getattr(self.predictor, "alpha2", None)
+        return {} if alpha2 is None else {"alpha2": alpha2}
+
+
+def _auto_rec_k(ds: LinkDataset, pad_deg: int) -> int:
+    """The recursion width for rec_k = -1: the smallest power of two, from
+    8, that covers the 75th percentile of the degrees of edge endpoints
+    (neighbor-of sampling, so size-biased), at most pad_deg."""
+    deg = np.bincount(np.asarray(ds.edge_index[0]), minlength=ds.n_nodes)
+    ep = deg[np.asarray(ds.edge_index[1])]
+    q = float(np.quantile(ep, 0.75)) if ep.size else 8.0
+    r = 8
+    while r < min(pad_deg, q):
+        r *= 2
+    return min(r, pad_deg)
+
 
 class Trainer:
     """Drives one (dataset, config) pair on one device."""
@@ -134,6 +169,10 @@ class Trainer:
         self.cfg = cfg
         self.ds = ds
         self.device = resolve_device(device)
+        self.frame_based = cfg.predictor in FRAME_BASED
+        if cfg.rec_k < 0 and cfg.predictor in SELF_BUILDING:
+            # written back into cfg, as the JAX package does
+            cfg.rec_k = _auto_rec_k(ds, cfg.pad_deg)
         g_host = ds.as_graph()
         self.g = g_host.to(self.device)
         full_host = ds.full_graph() if ds.full_edge_index is not None else None
@@ -148,10 +187,12 @@ class Trainer:
             self.x = torch.as_tensor(ds.x, dtype=self.dtype, device=self.device)
 
         # precomputed A^2 for the "gather" two-hop mode: one host SpGEMM per
-        # graph instead of the reference's per-batch SpGEMM
+        # graph instead of the reference's per-batch SpGEMM (of the
+        # incomplete family only cn3 reads one)
         self.adj2 = self.full_adj2 = None
         self.adj2_seconds = 0.0
-        if cfg.two_hop_mode == "gather":
+        if cfg.two_hop_mode == "gather" and (self.frame_based
+                                             or cfg.predictor == "cn3"):
             t0 = time.perf_counter()
             self.adj2 = self._build_adj2(g_host,
                                          keep_host=cfg.predictor in THREE_HOP)
@@ -180,9 +221,15 @@ class Trainer:
         # ELL window tables: built by the first train_epoch (or an explicit
         # _refresh_ell) and rebuilt every cfg.ell_refresh epochs
         self._ell = None
-        self._use_ell = bool(cfg.ell_tables and self.g.packed is not None
-                             and self.adj2 is not None
-                             and self.adj2.packed is not None)
+        # the frame-based predictors need both tables; the incomplete family
+        # gathers g (and cn3 its A^2) inside the predictor, recursion
+        # included, and takes the tables whenever its graphs pack
+        a2_packs = self.adj2 is not None and self.adj2.packed is not None
+        self._use_ell = bool(
+            cfg.ell_tables and self.g.packed is not None
+            and ((self.frame_based and a2_packs)
+                 or (cfg.predictor in SELF_BUILDING
+                     and (self.adj2 is None or a2_packs))))
 
     def _build_adj2(self, g: Graph, keep_host: bool = False) -> Graph:
         ip = g.indptr.numpy()
@@ -217,19 +264,21 @@ class Trainer:
 
     def _refresh_ell(self, rng: np.random.Generator) -> None:
         """Re-draw the frozen window offsets on the host and rebuild the
-        ELL tables (g at pad_deg, A^2 at pad_deg2, cn6's A^3 at k3, whose
-        offsets are drawn last) on the device."""
+        ELL tables (g at pad_deg, A^2 at pad_deg2 where there is one, cn6's
+        A^3 at k3, whose offsets are drawn last) on the device."""
         cfg = self.cfg
         off1 = ELL.draw_offsets(self._deg_np, cfg.pad_deg, rng)
-        off2 = ELL.draw_offsets(self.adj2.deg.cpu().numpy(), cfg.pad_deg2, rng)
         o1 = torch.as_tensor(off1, device=self.device)
-        o2 = torch.as_tensor(off2, device=self.device)
         self._ell = dict(
             tbl1=ELL.build_ell(self.g.packed, self.g.indptr, o1, cfg.pad_deg),
-            off1=o1, off1_np=off1,
-            tbl2=ELL.build_ell(self.adj2.packed, self.adj2.indptr, o2,
-                               cfg.pad_deg2),
-            off2=o2)
+            off1=o1, off1_np=off1)
+        if self.adj2 is not None:
+            off2 = ELL.draw_offsets(self.adj2.deg.cpu().numpy(), cfg.pad_deg2, rng)
+            o2 = torch.as_tensor(off2, device=self.device)
+            self._ell.update(
+                tbl2=ELL.build_ell(self.adj2.packed, self.adj2.indptr, o2,
+                                   cfg.pad_deg2),
+                off2=o2)
         if self.adj3 is not None:
             k3 = self._k3_width()
             o3 = torch.as_tensor(
@@ -248,7 +297,10 @@ class Trainer:
         the usual deg/k reweighted cap.  With frame_group > 1 the small
         body's chunk count nsp + nsn is rounded down to whole groups (taking
         from the larger side, negatives on a tie), which moves chunks to the
-        big body and caps no extra edge."""
+        big body and caps no extra edge.  The incomplete family joins the
+        split too (its outer width takes k_small); cn6 and the family, which
+        are never grouped, still round to whole groups, as in the JAX
+        package."""
         cfg = self.cfg
         if cfg.k_small <= 0 or cfg.k_small >= cfg.pad_deg or cfg.hoist_frames:
             return None
@@ -328,29 +380,44 @@ class Trainer:
         slice, so column normalisation stays per chunk and the EMA advances
         chunk by chunk.  One generator serves both, so the group draws its
         capped-row windows once and each chunk its dropout, in that order;
-        the streams cannot equal JAX's fold_in keys."""
+        the streams cannot equal JAX's fold_in keys.
+
+        The incomplete family (grp 1) passes the chunk to its predictor,
+        ``gen`` as both its dropout and its sample stream in training and,
+        when cfg.eval_sampling, as its sample stream at eval; it reads
+        neither ``valid`` nor ``corr``, as in the JAX package.  ``cndeg``
+        caps the frame-based CN sets, both from one draw of the group."""
         cfg = self.cfg
         frame_gen = gen if (training or cfg.eval_sampling) else None
+        if not self.frame_based:
+            out = state.predictor(h, g, edges, gen=gen if training else None,
+                                  sample=frame_gen, adj2=adj2,
+                                  k=k or cfg.pad_deg)
+            return out.reshape(-1)
         cn1, cn2, src = cn_frames(
             g, edges, k=k or cfg.pad_deg, k2=cfg.pad_deg2, gen=frame_gen,
             adj2=adj2, self_corr=corr, k2_dst=cfg.pad_deg2_dst,
             cn2_counts=cfg.cn2_counts, exact_two_hop=cfg.exact_two_hop,
             with_src=True)
-        vals = [cn1.val, cn2.val]
+        if cfg.cndeg > 0:
+            # the sampled ids are no CSR windows: no window-table positions
+            cn1, cn2 = sample_frames([cn1, cn2], cfg.cndeg, frame_gen)
+            y = None
+        frames = [cn1, cn2]
         if cfg.predictor in THREE_HOP:
             # cn3 shares the candidate frame src of cn1 and cn2
             k3 = self._k3_width()
-            vals.append(cn3_frame(g, edges, src, k2=k3, k3=k3,
-                                  counts=cfg.cn2_counts, adj3=adj3).val)
+            frames.append(cn3_frame(g, edges, src, k2=k3, k3=k3,
+                                    counts=cfg.cn2_counts, adj3=adj3))
         # padded/invalid edges must not pollute batch column sums / EMA
-        vals = [v * valid[:, None] for v in vals]
+        frames = [f.with_values(f.val * valid[:, None]) for f in frames]
         c = edges.shape[1] // grp
         outs = []
         for j in range(grp):
             sl = slice(j * c, (j + 1) * c)
-            frames = [CNFrame(cn1.ids[sl], v[sl], g.n_nodes) for v in vals]
             out = state.predictor(
-                h, g.n_nodes, *frames, edges[:, sl],
+                h, g.n_nodes, *[CNFrame(f.ids[sl], f.val[sl], g.n_nodes)
+                                for f in frames], edges[:, sl],
                 gen if training else None, y=y,
                 pos=src.pos[sl] if y is not None else None)
             outs.append(out.reshape(-1))
@@ -382,7 +449,7 @@ class Trainer:
         """A^2 of one step: no maskinput edit (cn_frames' self-path
         correction handles it), but its gathers ride the ELL table when the
         tables are on."""
-        if isinstance(mask_positions, dict):
+        if isinstance(mask_positions, dict) and "ell2" in mask_positions:
             return self.adj2.with_ell(mask_positions["ell2"],
                                       mask_positions["off2"])
         return self.adj2
@@ -404,8 +471,8 @@ class Trainer:
         negative chunk in order (with the dual-K split: the small body's
         positive and negative chunks, then the big body's), in frame groups
         of up to frame_group chunks, or with hoist_frames in one group of
-        them all (cn6 is never grouped).  Steps the predictor's EMA
-        buffers."""
+        them all (cn6 and the incomplete family are never grouped).  Steps
+        the predictor's EMA buffers."""
         cfg = self.cfg
         c = self._chunk()
         b = pos.shape[1]
@@ -422,14 +489,14 @@ class Trainer:
         h = state.encoder(self.x, g, gen)
         # the window table: one CSR-order row gather per step; the gradient
         # to h flows through the frame matmuls' backward, not through y
-        y = h.detach()[g.col] if cfg.window_table else None
+        y = h.detach()[g.col] if self._window_table() else None
 
         def score(edges, n_pos, k=None):
             # (2, n*c) edges, the first n_pos chunks positive, scored in
             # groups of _group_size(n, frame_group) chunks, or hoisted: one
             # group of all n
             n = edges.shape[1] // c
-            if cfg.predictor in THREE_HOP:
+            if cfg.predictor in THREE_HOP or not self.frame_based:
                 grp = 1
             elif cfg.hoist_frames:
                 grp = max(n, 1)
@@ -462,6 +529,12 @@ class Trainer:
         neg_sorted = torch.cat([small[nsp * c:], big[nbp:]])
         # the original batch order, so per-index pos/neg pairing survives
         return self._loss(pos_sorted[inv_p], neg_sorted[inv_n])
+
+    def _window_table(self) -> bool:
+        """The window table serves the frame-based predictors' CSR windows
+        only: not the incomplete family, not cndeg-sampled frames."""
+        cfg = self.cfg
+        return cfg.window_table and self.frame_based and cfg.cndeg <= 0
 
     def train_step(self, state: TrainState, pos: torch.Tensor, neg: torch.Tensor,
                    mask_positions, gen: torch.Generator,
@@ -512,8 +585,9 @@ class Trainer:
             mp = torch.as_tensor(mp_np, dtype=torch.int64, device=dev)
         if self._ell is not None:
             ell = self._ell
-            aux = {"csr": mp, "ell1": ell["tbl1"], "off1": ell["off1"],
-                   "ell2": ell["tbl2"], "off2": ell["off2"]}
+            aux = {"csr": mp, "ell1": ell["tbl1"], "off1": ell["off1"]}
+            if "tbl2" in ell:  # no A^2 for cn2/cn4
+                aux.update(ell2=ell["tbl2"], off2=ell["off2"])
             if "tbl3" in ell:  # cn6's A^3 table
                 aux.update(ell3=ell["tbl3"], off3=ell["off3"])
             if mp_np is not None:
@@ -549,6 +623,10 @@ class Trainer:
             neg = np.stack([pos[0], rng.integers(0, self.ds.n_nodes, size=e)])
         else:
             neg = B.negative_sampling(self.ds.edge_index, self.ds.n_nodes, e, rng)
+        if cfg.increasealpha and state.sched:
+            # the reference's ramp max(0, min((epoch - 5) * 0.1, 1))
+            with torch.no_grad():
+                state.sched["alpha2"].fill_(max(0.0, min((epoch - 5) * 0.1, 1.0)))
         bs = cfg.batch_size
         if e < bs and not getattr(self, "_warned_zero_batches", False):
             warnings.warn(
@@ -595,7 +673,7 @@ class Trainer:
         bs = self.cfg.testbs
         # built from the graph being scored (full_g for the test split
         # under use_valedges_as_input)
-        y = h[g.col] if self.cfg.window_table else None
+        y = h[g.col] if self._window_table() else None
         adj3 = self._eval_adj3()
         out = []
         n = edges.shape[0]
@@ -623,7 +701,8 @@ class Trainer:
         split is sorted by source degree once, full testbs batches of
         sources with degree <= k_small (in the graph being scored) run at
         width k_small, the rest at pad_deg, and the scores are put back in
-        order."""
+        order.  The incomplete family's outer width caps both endpoints'
+        windows, so it sorts by the larger of the two degrees."""
         cfg = self.cfg
         n = edges.shape[0]
         if not (cfg.dual_k_eval and 0 < cfg.k_small < cfg.pad_deg
@@ -632,7 +711,10 @@ class Trainer:
         edges = np.asarray(edges)
         # degrees of the graph being scored: on full_g a source may cross
         # k_small once the valid edges are added, and must then go big
-        deg = g.deg.cpu().numpy()[edges[:, 0]]
+        gdeg = g.deg.cpu().numpy()
+        deg = gdeg[edges[:, 0]]
+        if not self.frame_based:
+            deg = np.maximum(deg, gdeg[edges[:, 1]])
         sp = np.argsort(deg, kind="stable")
         split_at = (int(np.sum(deg <= cfg.k_small)) // cfg.testbs) * cfg.testbs
         se = edges[sp]
@@ -650,8 +732,10 @@ class Trainer:
         when ``ell_eval`` (rows with degree <= pad_deg score the same;
         capped rows use the frozen window)."""
         if self.cfg.ell_eval and self._use_ell and self._ell is not None:
-            return (self.g.with_ell(self._ell["tbl1"], self._ell["off1"]),
-                    self.adj2.with_ell(self._ell["tbl2"], self._ell["off2"]))
+            a2 = self.adj2
+            if "tbl2" in self._ell:
+                a2 = a2.with_ell(self._ell["tbl2"], self._ell["off2"])
+            return self.g.with_ell(self._ell["tbl1"], self._ell["off1"]), a2
         return self.g, self.adj2
 
     def _eval_adj3(self) -> Optional[Graph]:

@@ -4,15 +4,16 @@
 parameter tree (``TrainState.params``: ``{"encoder": ..., "predictor":
 ...}``) and EMA collection (``TrainState.ema``) as nested dicts of NumPy
 arrays (``jax.device_get`` gives them) and copies them into a port
-``GCNEncoder`` (either conv stack) and frame-based predictor (cn1,
-cn5-cn9), including the EMA buffers where the predictor has them.  Dense
+``GCNEncoder`` (either conv stack) and predictor (any of cn1-cn9),
+including the EMA buffers where the predictor has them and the incomplete
+family's "sched" state (``alpha2``).  Dense
 kernels (in, out) are transposed into Linear weights (out, in); LayerNorm
 ``scale``/``bias`` become ``weight``/``bias``.  Every leaf of the tree must
 land somewhere, and every shape must match: a mismatch raises.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,9 +75,12 @@ def load_encoder(enc: nn.Module, p: Mapping) -> None:
             raise KeyError(f"unmapped JAX parameter encoder/{key}")
 
 
+# flax names of the MLP blocks: auto-named in the frame-based predictors,
+# named by attribute in the incomplete family's setup()
 _PREDICTOR_BLOCKS = {"XijMLP_0": "xijlin", "CNAggMLP_0": "xcn1lin",
                      "CNAggMLP_1": "xcn2lin", "CNAggMLP_2": "xcn3lin",
-                     "HeadMLP_0": "lin"}
+                     "HeadMLP_0": "lin", "xijlin": "xijlin", "xlin": "xlin",
+                     "xcnlin": "xcnlin", "head": "head"}
 
 
 def _load_onehot_layer(pred: nn.Module, key: str, sub, kind: str, i: int) -> None:
@@ -96,17 +100,22 @@ def _load_onehot_layer(pred: nn.Module, key: str, sub, kind: str, i: int) -> Non
         raise KeyError(f"unmapped JAX parameter predictor/{key}")
 
 
-def load_predictor(pred: nn.Module, p: Mapping, ema: Mapping) -> None:
-    """Copy a frame-based predictor's parameters and EMA state: the MLP
-    blocks by their flax names, cn1's and cn9's one-hot weights
-    (``xcn1_w1``, ``xcn1_b1``, ...) and inline layers.  Predictors without
-    an EMA (cn7, cn8, cn9) take an empty ``ema``."""
+def load_predictor(pred: nn.Module, p: Mapping, ema: Mapping,
+                   sched: Optional[Mapping] = None) -> None:
+    """Copy a predictor's parameters, EMA and sched state: the MLP blocks
+    by their flax names, cn1's and cn9's one-hot weights (``xcn1_w1``,
+    ``xcn1_b1``, ...) and inline layers, the incomplete family's ``ptlin1``/
+    ``ptlin2`` and ``alpha2``.  Predictors without an EMA (cn7, cn8, cn9)
+    take an empty ``ema``, all but the incomplete family an empty or no
+    ``sched``."""
     for key, sub in p.items():
         kind, _, i = key.rpartition("_")
         if key in ("alpha", "beta"):
             _copy(getattr(pred, key), sub, f"predictor/{key}")
         elif key in _PREDICTOR_BLOCKS and hasattr(pred, _PREDICTOR_BLOCKS[key]):
             _load_seq(getattr(pred, _PREDICTOR_BLOCKS[key]), sub, f"predictor/{key}")
+        elif key in ("ptlin1", "ptlin2") and hasattr(pred, key):
+            _load_dense(getattr(pred, key), sub, f"predictor/{key}")
         elif key in ("xcn1_w1", "xcn1_b1", "xcn2_w1", "xcn2_b1"):
             block, _, leaf = key.partition("_")
             dst = getattr(getattr(pred, f"{block}lin"), leaf, None)
@@ -123,12 +132,18 @@ def load_predictor(pred: nn.Module, p: Mapping, ema: Mapping) -> None:
     extra = set(ema) - ({"innerprod", "n"} if hasattr(pred, "innerprod") else set())
     if extra:
         raise KeyError(f"unmapped JAX EMA state {sorted(extra)}")
+    sched = dict(sched or {})
+    if hasattr(pred, "alpha2") and "alpha2" in sched:
+        _copy(pred.alpha2, sched.pop("alpha2"), "sched/alpha2")
+    if sched:
+        raise KeyError(f"unmapped JAX sched state {sorted(sched)}")
 
 
 def params_from_jax(params: Mapping, ema: Mapping, encoder: nn.Module,
-                    predictor: nn.Module) -> Tuple[nn.Module, nn.Module]:
-    """Copy ocn_tpu parameters and EMA state into (encoder, predictor);
-    returns them."""
+                    predictor: nn.Module, sched: Optional[Mapping] = None
+                    ) -> Tuple[nn.Module, nn.Module]:
+    """Copy ocn_tpu parameters, EMA and sched state into (encoder,
+    predictor); returns them."""
     load_encoder(encoder, params["encoder"])
-    load_predictor(predictor, params["predictor"], ema)
+    load_predictor(predictor, params["predictor"], ema, sched)
     return encoder, predictor

@@ -139,14 +139,46 @@ def test_new_path_phases_on_cpu(on_cpu, capsys):
     assert ocnp["chunk_score_max_abs_err"] == 0.0
     assert cn6["chunk_score_max_abs_err"] == 0.0
     assert hoist["group_score_max_abs_err"] == 0.0
-    assert set(variants) == {"phase", "seconds", "cn1", "cn8", "cn9"}
+    stepped = ("cn1", "cn8", "cn9", "cn5_cndeg32")
+    assert set(variants) == {"phase", "seconds", "cn2_increasealpha_epoch7",
+                             *stepped}
     # cn1 and cn9 carry two (n_nodes, hidden) one-hot weights, cn8 none
     assert (variants["cn1"]["parameters"] - variants["cn8"]["parameters"]
             > 2 * ds.n_nodes * 16 - 2 * 16 * 16 * 3)
-    assert v_launches == sum(
+    epoch = variants["cn2_increasealpha_epoch7"]
+    # three steps of 8 + 8 chunks, four lookups a chunk
+    assert epoch["alpha2"] == pytest.approx(0.2) and epoch["steps"] == 3
+    assert epoch["membership_launches"] == 3 * 16 * 4
+    assert v_launches == epoch["membership_launches"] + sum(
         sum(variants[n]["membership_launches_per_step"])
-        + variants[n]["membership_launches_eval"] for n in ("cn1", "cn8", "cn9"))
+        + variants[n]["membership_launches_eval"] for n in stepped)
     assert sum(o_shapes.values()) == 96 + o_eval["membership_launches_eval"]
+
+
+def test_family_phase_on_cpu(on_cpu, capsys):
+    """family_slice at a tiny size: 8 + 8 chunks a step, four membership
+    lookups a chunk for cn2 and twelve for cn3, in training and in each
+    eval batch; the blocked lookups at (chunk * trndeg) rows in training
+    and (testbs * 64) in eval: tstdeg 128 caps nothing in a frame of 64
+    lanes, so the residual sets keep all 64."""
+    ds = synthetic_dataset("collab", seed=0, scale=0.01).reorder_bfs()
+    launches, shapes = chip_smoke.phase_family_slice(ds, **TINY)
+    line = json.loads(capsys.readouterr().out)
+    assert line["phase"] == "family_slice"
+    assert line["split_rows"]["train"]["edge"] == 3 * 1024
+    total = 0
+    for name, per_chunk in (("cn2", 4), ("cn3", 12)):
+        rec = line[name]
+        assert rec["membership_launches_per_step"] == [16 * per_chunk] * 3
+        assert rec["membership_launches_eval"] == per_chunk * rec["eval_batches"] > 0
+        assert rec["chunk_score_max_abs_err"] == 0.0 and rec["rec_k"] == 16
+        assert np.isfinite(rec["losses"]).all() and rec["eval_s"] > 0
+        assert (rec["adj2_host_build_s"] > 0) == (name == "cn3")
+        assert rec["largest_lookup"] == [1024 * 64, 16]
+        train_rows = {s[0] for s in rec["membership_shapes_train"]}
+        assert train_rows == {128, 128 * 8}
+        total += sum(rec["membership_launches_per_step"]) + rec["membership_launches_eval"]
+    assert launches == total == sum(shapes.values())
 
 
 @pytest.mark.parametrize("intervals,lo,hi,want", [

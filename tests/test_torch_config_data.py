@@ -26,6 +26,8 @@ from ocn_tpu_torch.train import losses as tloss
 from ocn_tpu_torch.train import metrics as tmet
 from ocn_tpu_torch.train.loop import Trainer
 from ocn_tpu_torch.utils import native as tnative
+from torch_parity import ensure_native_route
+from torch_parity import native_route  # noqa: F401 (autouse: native host code on both sides)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,7 +46,6 @@ def test_config_defaults_and_fields_match():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("cndeg", 32), ("predictor", "cn2"), ("predictor", "cn3"), ("predictor", "cn4"),
     ("dp_devices", 4), ("graph_sharding", "node"),
 ])
 def test_unported_fields_raise(field, value):
@@ -59,6 +60,7 @@ def test_unported_fields_raise(field, value):
     ("predictor", "cn1"), ("predictor", "cn5"), ("predictor", "cn6"),
     ("predictor", "cn7"), ("predictor", "cn8"), ("predictor", "cn9"),
     ("two_hop_mode", "sddmm"), ("encoder_stack", "ho"),
+    ("cndeg", 32), ("predictor", "cn2"), ("predictor", "cn3"), ("predictor", "cn4"),
 ])
 def test_ported_fields_are_accepted(field, value):
     tcfg.require_supported(tcfg.Config(**{field: value}))
@@ -80,7 +82,8 @@ def test_unknown_values_are_refused(field, value):
 def test_collab_preset_needs_the_knobs_off():
     # presets("collab", "cn5") (ELL tables, k_small=16) runs as it is, with
     # the window table, at bench.py's frame_group 8 and bfloat16, and with
-    # hoisted frames; so do the OCNP presets; the incomplete family raises
+    # hoisted frames; so do the OCNP presets and the incomplete family; a
+    # mesh raises
     tcfg.require_supported(tcfg.presets("collab", "cn5"))
     tcfg.require_supported(tcfg.presets("collab", "cn5", window_table=True))
     tcfg.require_supported(tcfg.presets("collab", "cn5", frame_group=8,
@@ -89,8 +92,10 @@ def test_collab_preset_needs_the_knobs_off():
                                         hoist_frames=True))
     for ds in ("Cora", "Citeseer", "Pubmed", "collab"):
         tcfg.require_supported(tcfg.presets(ds, "cn7"))
-    with pytest.raises(NotImplementedError, match="Config.predictor"):
-        tcfg.require_supported(tcfg.presets("collab", "cn2"))
+    for pred in ("cn2", "cn3", "cn4"):
+        tcfg.require_supported(tcfg.presets("collab", pred, cndeg=32))
+    with pytest.raises(NotImplementedError, match="Config.dp_devices"):
+        tcfg.require_supported(tcfg.presets("collab", "cn3", dp_devices=4))
 
 
 def _assert_dataset_equal(a, b):
@@ -151,6 +156,23 @@ def test_csr_edge2pos_adj2_negatives_match():
             np.testing.assert_array_equal(x, y)
     got = tb.negative_sampling(ds.edge_index, ds.n_nodes, 500, np.random.default_rng(5))
     want = jb.negative_sampling(ds.edge_index, ds.n_nodes, 500, np.random.default_rng(5))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_native_route_is_restored(monkeypatch):
+    # the JAX loader as a worker leaves it after a failed load of a library
+    # that another worker's compiler was still writing
+    from ocn_tpu.utils import native as jnative
+
+    monkeypatch.delenv("OCN_TPU_NO_NATIVE", raising=False)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", True)
+    assert jnative.load() is None
+    ensure_native_route()
+    assert jnative.load() is not None and tnative.loaded()
+    ds, _, _ = _host_graph(seed=4, n=300)
+    want = tb.negative_sampling(ds.edge_index, ds.n_nodes, 400, np.random.default_rng(6))
+    got = jb.negative_sampling(ds.edge_index, ds.n_nodes, 400, np.random.default_rng(6))
     np.testing.assert_array_equal(got, want)
 
 

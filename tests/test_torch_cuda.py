@@ -370,3 +370,47 @@ def test_grouped_bf16_steps_on_the_card_match_cpu(cuda):
     steps = ds.split_edge["train"]["edge"].shape[0] // cfg.batch_size
     assert tm.membership_counts.launches - before == 2 * steps * 2 * 8
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("c,r", [(4096, 8), (512, 128)])
+def test_membership_broadcast_block_matches_plain(cuda, c, r):
+    """The incomplete family's blocked recursion lookups: each anchor's row
+    (C, 1, K) against its R candidates' rows (C, R, K), through
+    _rowwise_membership, which expands the anchor's row over R before the
+    kernel (one launch at C*R rows); exact at unit weights."""
+    rng = np.random.default_rng(2)
+    k, n = 16, 5000
+    q = torch.as_tensor(rng.integers(0, n, size=(c, 1, k)).astype(np.int32),
+                        device=cuda)
+    ids = torch.as_tensor(np.sort(rng.integers(0, n, size=(c, r, k)), axis=-1)
+                          .astype(np.int32), device=cuda)
+    w = torch.ones(c, r, k, device=cuda)
+    before = tm.membership_counts.launches
+    shapes_before = tm.membership_counts.shapes[(c * r, k, k)]
+    got = tf._rowwise_membership(q, ids, w)
+    torch.cuda.synchronize()
+    assert tm.membership_counts.launches == before + 1
+    assert tm.membership_counts.shapes[(c * r, k, k)] == shapes_before + 1
+    want = tm.membership_counts_plain(q.expand(c, r, k).reshape(-1, k),
+                                      ids.reshape(-1, k), w.reshape(-1, k))
+    assert got.shape == (c, r, k)
+    assert torch.equal(got.reshape(-1, k), want)
+
+
+@pytest.mark.parametrize("pred", ["cn2", "cn3"])
+def test_family_steps_on_the_card_match_cpu(cuda, pred):
+    """Two epochs of the incomplete family on ELL tables (frozen windows,
+    no sample stream read) with the dual-K split and the blocked recursion
+    at rec_k 8, on the card against the CPU."""
+    ds = synthetic_dataset("Cora", seed=0, scale=0.2).reorder_bfs()
+    cfg = Config(**dict(TRAIN_KW, predictor=pred, ell_tables=True, pad_deg=16,
+                        pad_deg2=16, k_small=4, rec_k=8, trndeg=16, tstdeg=16,
+                        depth=1, learnpt=True))
+
+    def check(tr):
+        assert tr._use_ell and tr._split and (tr.adj2 is None) == (pred == "cn2")
+
+    before = tm.membership_counts.launches
+    losses = {dev: _epoch_losses(cfg, ds, dev, check) for dev in ("cpu", "cuda")}
+    assert tm.membership_counts.launches > before
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -1,12 +1,16 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): the
 same inputs through a JAX predictor or trainer and its counterpart in
 ocn_tpu_torch, weights copied with weights.params_from_jax.  Not a test
-file: pytest collects nothing here."""
+file: pytest collects nothing here, apart from the autouse fixture
+``native_route`` that each parity module imports."""
 import copy
+import ctypes
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ocn_tpu.config import Config as JConfig
@@ -16,22 +20,64 @@ from ocn_tpu_torch.config import Config as TConfig
 from ocn_tpu_torch.nn.predictors import build_predictor as tbuild
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.train.loop import Trainer as TTrainer
+from ocn_tpu_torch.utils import native as tnative
+from ocn_tpu_torch.utils import toolchain
 from ocn_tpu_torch.weights import load_predictor, params_from_jax
 
 TOL = dict(rtol=1e-4, atol=1e-6)
 
 
-def assert_param_grads(tp, jgrads, ema, **tol):
+def ensure_native_route():
+    """Put both packages' host graph code (CSR builds, A^2, negative
+    sampling) on the native library, unless OCN_TPU_NO_NATIVE asks for the
+    NumPy fallbacks, and assert that both took it.
+
+    The JAX package's loader runs ``make`` in place when the library is
+    missing and keeps the NumPy fallbacks for the rest of the process if its
+    load fails, as it does when another test worker's compiler is still
+    writing the file.  Its fallbacks draw other negatives than the native
+    code, so a comparison would then pit a fallback against native code.
+    When that loader comes back empty, it is handed the library that the
+    port builds from the same source and flags (ocn_tpu_torch/utils/
+    toolchain.py: a per-process temporary file renamed into place)."""
+    if os.environ.get("OCN_TPU_NO_NATIVE"):
+        return
+    from ocn_tpu.utils import native as jnative
+
+    try:
+        lib = jnative.load()
+    except Exception:  # a half-written library that loads without symbols
+        lib = None
+    if lib is None:
+        jnative._LIB = jnative._GraphCore(ctypes.CDLL(toolchain.build_graphcore()))
+        jnative._TRIED = True
+    assert jnative.load() is not None, "the JAX package is on its NumPy fallbacks"
+    assert tnative.loaded(), "the port is on its NumPy fallbacks"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def native_route():
+    """Autouse in every parity module that imports it: the native route on
+    both sides, once per module (see ensure_native_route)."""
+    ensure_native_route()
+
+
+def assert_param_grads(tp, jgrads, ema, scale_atol=0.0, **tol):
     """Every parameter gradient of the port's predictor ``tp`` against the
     JAX gradient tree: the tree is loaded into a copy of ``tp`` by the same
-    mapping as its weights, so layouts (transposed kernels) line up."""
+    mapping as its weights, so layouts (transposed kernels) line up.
+    ``scale_atol``: each parameter's atol is at least this times its largest
+    JAX gradient (an entry that is a sum cancelling to far below its terms
+    keeps only their float error)."""
     ref = copy.deepcopy(tp)
     load_predictor(ref, jax.device_get(jgrads), jax.device_get(ema))
     want = dict(ref.named_parameters())
     for name, p in tp.named_parameters():
         assert p.grad is not None, name
-        np.testing.assert_allclose(p.grad.numpy(), want[name].detach().numpy(),
-                                   err_msg=name, **tol)
+        w = want[name].detach().numpy()
+        kw = dict(tol)
+        kw["atol"] = max(kw.get("atol", 0.0), scale_atol * float(np.abs(w).max()))
+        np.testing.assert_allclose(p.grad.numpy(), w, err_msg=name, **kw)
 
 
 def predictor_sequence(name, kw, steps, hid=16, **tol):
@@ -84,15 +130,34 @@ def predictor_sequence(name, kw, steps, hid=16, **tol):
     return tp
 
 
+class _JitInit:
+    """A JAX predictor whose ``init`` runs jitted (its boolean arguments
+    static); every other attribute is the module's.  JAX's Trainer.init_state
+    initialises the predictor eagerly, op by op, which takes seconds (the
+    incomplete family's recursive forward over ten)."""
+
+    def __init__(self, module):
+        self._module = module
+
+    def init(self, *args, **kw):
+        flags = tuple(i for i, a in enumerate(args) if isinstance(a, bool))
+        return jax.jit(self._module.init, static_argnums=flags)(*args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
 def trainer_pair(kw, jds, tds):
     """JAX and port trainers on the same config and dataset, the port's
     modules loaded with the JAX initial state; ELL tables built from one
     NumPy seed on both sides when they are on."""
     jt = JTrainer(JConfig(**kw), jds)
     tt = TTrainer(TConfig(**kw), tds, device="cpu")
+    jt.predictor = _JitInit(jt.predictor)
     js = jt.init_state(0)
     ts = tt.init_state(0)
-    params_from_jax(*jax.device_get((js.params, js.ema)), ts.encoder, ts.predictor)
+    params_from_jax(*jax.device_get((js.params, js.ema)), ts.encoder, ts.predictor,
+                    jax.device_get(js.sched))
     if tt._use_ell:
         jt._refresh_ell(np.random.default_rng(7))
         tt._refresh_ell(np.random.default_rng(7))
@@ -125,7 +190,7 @@ def trajectory(kw, jds, tds, nsteps=5, on_step=None, rtol=1e-4):
         if on_step is not None:
             on_step(tt)
     np.testing.assert_allclose(tl, jl, rtol=rtol)
-    assert len(set(jl)) == nsteps  # the loss moves: the steps really train
+    assert np.isfinite(jl).all() and len(set(jl)) == nsteps  # the steps train
 
     rj, rt = np.random.default_rng(9), np.random.default_rng(9)
     js, jloss = jt.train_epoch(js, rj, 1)
@@ -196,3 +261,86 @@ def frame_steps(three_hop=False, k=8, k2=16, k3=8, hid=16):
 def without_window(steps):
     return [{k: v for k, v in s.items() if k not in ("jwin", "twin")}
             for s in steps]
+
+
+# ----------------------------------------------------- the incomplete family
+HID = 16
+# the incomplete family's predictor settings in its parity tests: widths at
+# the test graph's largest degree (16) and the residual caps at its largest
+# row, no dropout: no random stream is read
+FAMILY_KW = dict(dropout=0.0, edrop=0.0, k=16, trndeg=16, tstdeg=16,
+                 use_xlin=True, tailact=True, ln=True, probscale=4.3,
+                 proboffset=2.8, pt=0.75, alpha=0.9)
+
+
+def family_setup():
+    """Synthetic Cora at scale 0.1 (max degree 16) as a graph of each
+    package, with its A^2 (cap 1024), node states and 24 train edges."""
+    from ocn_tpu.sparse.csr import graph_from_numpy as jgraph
+    from ocn_tpu_torch.data.loaders import synthetic_dataset
+    from ocn_tpu_torch.sparse.csr import graph_from_numpy as tgraph
+
+    ds = synthetic_dataset("Cora", seed=2, scale=0.1)
+    n = ds.n_nodes
+    ip, col = B.csr_from_edge_index(ds.edge_index, n)
+    ip2, col2, val2 = B.adj2_csr(ip, col, n, cap=1024)
+    x = np.random.default_rng(0).standard_normal((n, HID)).astype(np.float32)
+    return dict(ds=ds, n=n, jg=jgraph(ip, col, n), tg=tgraph(ip, col, n),
+                ja2=jgraph(ip2, col2, n, val2, gather_only=True),
+                ta2=tgraph(ip2, col2, n, val2, gather_only=True), x=x,
+                tar=ds.split_edge["train"]["edge"][:24].T)
+
+
+def family_pair(name, cora, **kw):
+    """A JAX predictor's variables and the port's predictor loaded from
+    them, the EMA started away from 0 so that its decay shows."""
+    jp = jbuild(name, HID, cora["n"], **kw)
+    # jitted: an eager init of the recursive forward dispatches op by op
+    init = jax.jit(lambda x, tar: jp.init(
+        {"params": jax.random.PRNGKey(0)}, x, cora["jg"], tar, False,
+        adj2=cora["ja2"]))
+    v = jax.device_get(init(jnp.asarray(cora["x"]), jnp.asarray(cora["tar"])))
+    v["ema"] = {"innerprod": np.float32(0.75), "n": np.int32(3)}
+    tp = tbuild(name, HID, HID, n_nodes=cora["n"], **kw)
+    load_predictor(tp, v["params"], v["ema"], v["sched"])
+    return jp, v, tp
+
+
+def family_sequence(name, cora, kw, modes=(True, True, False), k=None):
+    """Forward, input and parameter gradients, and the EMA of the predictor
+    ``name`` on both sides over calls in the given training modes; ``k``
+    the outer frame width of the calls (the dual-K small body's)."""
+    jp, v, tp = family_pair(name, cora, **kw)
+    x, tar, ema = cora["x"], jnp.asarray(cora["tar"]), v["ema"]
+    ct = np.random.default_rng(1).standard_normal((tar.shape[1], 1)).astype(np.float32)
+
+    def jfun(p, xx, ema, training):
+        out, upd = jp.apply({"params": p, "ema": ema, "sched": v["sched"]},
+                            xx, cora["jg"], tar, training,
+                            adj2=cora["ja2"], k=k, mutable=["ema"])
+        return jnp.sum(out * ct), (out, upd["ema"])
+
+    jstep = jax.jit(jax.value_and_grad(jfun, argnums=(0, 1), has_aux=True),
+                    static_argnums=3)
+    for training in modes:
+        (_, (jout, ema)), (jgp, jgx) = jstep(v["params"], jnp.asarray(x), ema,
+                                             training)
+        tp.train(training)
+        tp.zero_grad()
+        xt = torch.as_tensor(x).requires_grad_()
+        out = tp(xt, cora["tg"], torch.as_tensor(cora["tar"]), adj2=cora["ta2"],
+                 k=k)
+        (out * torch.as_tensor(ct)).sum().backward()
+        # alpha (3,) is kept for the reference's parameter list and read by
+        # nothing: no gradient here, zeros in JAX
+        assert tp.alpha.grad is None
+        tp.alpha.grad = torch.zeros_like(tp.alpha)
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **TOL)
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), **TOL)
+        # cn3's hidden-layer bias gradients sum terms of order 100 into
+        # entries of order 0.01 at depth 2
+        assert_param_grads(tp, jgp, ema, scale_atol=1e-6, **TOL)
+        np.testing.assert_allclose(float(tp.innerprod), float(ema["innerprod"]),
+                                   **TOL)
+        assert int(tp.n) == int(ema["n"])
+    return tp, ema
