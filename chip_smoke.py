@@ -18,7 +18,8 @@ and the script exits nonzero:
              around 50 calls queued behind a spin kernel, so that the card
              runs them back to back, divided by the calls).
 3. reference - the slices at a tiny size on the card against the same
-             slices on the CPU (plain versions), same initial weights: the plain
+             slices on the CPU (plain versions), same initial weights, one
+             case at a time (reference_cases, run_reference_case): the plain
              path, the window path with ELL tables and the dual-K split,
              the grouped bfloat16 program, then two steps each of cn7 (also
              with the window table), cn8, cn9, cn1, cn6 (A^3 table, dual-K)
@@ -30,6 +31,17 @@ and the script exits nonzero:
              the blocked recursion), cn2 at depth 2 (the generic route) and
              cn2 with the learnable pt: losses, Hits or MRR and eval scores
              compared.
+3b. cli_slice - ocn_tpu_torch.cli.run on presets("Cora", "cn5") at its own
+             width (puregcn, hidden 256), 2 epochs of one run with savemod,
+             save_gemb, a checkpoint_dir and a profile_dir, in a temporary
+             working directory: the Chrome trace must name the membership
+             kernel, rec/puregcn_cn5/metrics.jsonl hold both epochs, a
+             second run with loadmod restore the saved step's parameters,
+             buffers and Adam state bit for bit, an evaluate of the restored
+             state (its epoch's ELL tables rebuilt) equal the one run 1
+             logged, and ocn_tpu_torch.train.hpo.main run 2 trials at 1
+             epoch.  It runs this early because torch.profiler's trace keeps
+             fewer of a short window's kernels as the process ages.
 4. slice   - the main path at full width: synthetic collab (scale 1.0,
              BFS-relabelled), the 3-layer gcn encoder with LN/res/JK at
              hidden 256, cn5 with pad_deg 64 / pad_deg2 64 and the host A^2
@@ -89,6 +101,14 @@ and the script exits nonzero:
              in training and in eval; the largest lookup's expanded query
              bytes; one small-body and one big-body chunk re-scored with the
              plain version.
+12b. bench_program - the port's bench program (ocn_tpu_torch/scripts/
+             bench.py main(), in-process, as python -m runs it) at its full
+             defaults: synthetic collab at scale 1.0, cn5, gcn x 3 at hidden
+             256, bfloat16 x, ELL tables, k_small 16, frame_group 8, batch
+             65,536, 10 timed steps after a warm-up, the two anchors; its
+             JSON line, membership launches (> 0) and peak memory; then its
+             OCN_BENCH_WINDOW=1 OCN_BENCH_PAIR=0 variant, which must launch
+             the window gather.
 13. ppa_slice - bench.py's ppa shape (bench.py:118-151): the 1-layer "ho"
              gcn at hidden 64 on synthetic ppa (integer features, BFS-
              relabelled) at PPA_SCALE, path-count cn2, batch 16384 in chunks
@@ -119,7 +139,7 @@ and the script exits nonzero:
              scripts/bench_gather.py on the card); each kernel must launch.
 
 The datasets of phases 13-15 are made in two worker processes while the
-card runs phases 1-12; their lines give the workers' seconds and the wait.
+card runs phases 1-12b; their lines give the workers' seconds and the wait.
 Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits
 (or mrr), its membership launches (per step, in eval, by shape) and peak
 device memory (train and eval apart where both run); the phases on new
@@ -134,7 +154,9 @@ CUDA device, or outside the repository, it exits nonzero and prints no
 result.
 """
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import multiprocessing
@@ -210,6 +232,22 @@ TRAIN_CUT = 131072
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms over a region (index_add_ and the other
+    scatter-adds then sum in one order on the card), the setting restored
+    after.  Two scorings of the same chunks that differ in one kernel are
+    compared under it: with atomic scatter-adds, a column sum that nearly
+    cancels (the incomplete family's 1 / colsum) turns their run-to-run
+    order into differences above the comparison's 1e-5."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -606,38 +644,48 @@ def phase_kernels():
             "window_bf16": (wb_err, wb_timing)}
 
 
-def phase_reference():
-    """The slices at a tiny size, card against CPU, from the same weights:
-    the plain path (no frame cap binds, so no random stream is read), then the
-    window-table path with ELL tables and the dual-K split (capped rows ride
-    the tables, whose offsets come from NumPy, so again no stream is read),
-    then bench.py's grouped bfloat16 program on the tables: frame_group 2
-    over a split that the group rounding moves (4 + 3 chunks become 3 + 3)
-    and bfloat16 features; three epochs each.  Then, two steps each (one
-    epoch), the new predictors on the tables with the dual-K split: cn7
-    (also with the window table), cn8, cn9, cn1, cn6 (with its A^3 table),
-    and hoisted cn5; their valid-edge scores are compared too.  Then two
-    steps each of the "ho" stack: on ppa (Embedding input, path-count cn2,
-    maskinput, ELL tables, dual-K), on citation2 (randint-target
-    negatives, MRR on 32 sources), and in the SDDMM mode on citation2 (the
-    spd preset's exactly-distance-2 counts; no tables, so its caps sit above
-    every degree).  Then two steps each of the incomplete family on the
-    tables with the dual-K split: cn2, cn3 (both at depth 1, the blocked
-    recursion at rec_k 8), cn2 at depth 2 (its depth-1 recursion takes the
-    generic route) and cn2 with the learnable pt; the residual caps sit at
-    the frame width and A^2's table is as wide as its row gather, so again
-    no stream is read."""
-    from ocn_tpu_torch.config import Config
-    from ocn_tpu_torch.data.loaders import synthetic_dataset
-    from ocn_tpu_torch.ops import window_gather as W
-    from ocn_tpu_torch.train.loop import Trainer
+REFERENCE_DATA = ("Cora", "ppa", "citation2")
 
-    t0 = time.perf_counter()
-    ds = synthetic_dataset("Cora", seed=0, scale=0.3).reorder_bfs()
-    ppa = cut_splits(synthetic_dataset("ppa", seed=0, scale=0.0005), 640, 256
-                     ).reorder_bfs()
-    c2 = cut_splits(synthetic_dataset("citation2", seed=0, scale=0.00015), 640,
-                    32).reorder_bfs()
+
+def reference_dataset(name):
+    """The tiny BFS-relabelled dataset of the reference cases: synthetic
+    Cora at scale 0.3, or ppa and citation2 cut to 640 train links (and 256
+    eval rows, 32 MRR sources)."""
+    from ocn_tpu_torch.data.loaders import synthetic_dataset
+
+    if name == "Cora":
+        return synthetic_dataset("Cora", seed=0, scale=0.3).reorder_bfs()
+    if name == "ppa":
+        return cut_splits(synthetic_dataset("ppa", seed=0, scale=0.0005), 640,
+                          256).reorder_bfs()
+    return cut_splits(synthetic_dataset("citation2", seed=0, scale=0.00015), 640,
+                      32).reorder_bfs()
+
+
+def reference_cases():
+    """The reference cases in order: {name: (config, epochs, dataset name)}.
+
+    The plain path (no frame cap binds, so no random stream is read), then
+    the window-table path with ELL tables and the dual-K split (capped rows
+    ride the tables, whose offsets come from NumPy, so again no stream is
+    read), then bench.py's grouped bfloat16 program on the tables:
+    frame_group 2 over a split that the group rounding moves (4 + 3 chunks
+    become 3 + 3) and bfloat16 features; three epochs each.  Then, two steps
+    each (one epoch), the new predictors on the tables with the dual-K
+    split: cn7 (also with the window table), cn8, cn9, cn1, cn6 (with its
+    A^3 table), and hoisted cn5; their valid-edge scores are compared too.
+    Then two steps each of the "ho" stack: on ppa (Embedding input,
+    path-count cn2, maskinput, ELL tables, dual-K), on citation2
+    (randint-target negatives, MRR on 32 sources), and in the SDDMM mode on
+    citation2 (the spd preset's exactly-distance-2 counts; no tables, so its
+    caps sit above every degree).  Then two steps each of the incomplete
+    family on the tables with the dual-K split: cn2, cn3 (both at depth 1,
+    the blocked recursion at rec_k 8), cn2 at depth 2 (its depth-1 recursion
+    takes the generic route) and cn2 with the learnable pt; the residual
+    caps sit at the frame width and A^2's table is as wide as its row
+    gather, so again no stream is read."""
+    from ocn_tpu_torch.config import Config
+
     base = Config(model="gcn", mplayers=2, hiddim=32, ln=True, res=True,
                   jk=True, use_xlin=True, tailact=True, gnndp=0.0, xdp=0.0,
                   tdp=0.0, gnnedp=0.0, predp=0.0, preedp=0.0, maskinput=True,
@@ -661,74 +709,96 @@ def phase_reference():
              ("cn1", dataclasses.replace(tables, predictor="cn1"), 1),
              ("cn6", dataclasses.replace(tables, predictor="cn6"), 1),
              ("hoisted_cn5", dataclasses.replace(tables, hoist_frames=True), 1)]
-    cases = [(name, cfg, epochs, ds) for name, cfg, epochs in cases]
+    cases = [(name, cfg, epochs, "Cora") for name, cfg, epochs in cases]
     ho = dataclasses.replace(tables, encoder_stack="ho", cn2_counts=True,
                              gnnedp=0.3, batch_size=256, linkbatchsize=32,
                              pad_deg=16, pad_deg2=16)
     cases += [
         ("ppa", dataclasses.replace(ho, dataset="ppa", mplayers=1, res=False,
-                                    small_frac=0.25, small_frac_neg=0.25), 1, ppa),
+                                    small_frac=0.25, small_frac_neg=0.25), 1, "ppa"),
         ("citation2", dataclasses.replace(
             ho, dataset="citation2", model="puregcn", mplayers=3,
-            neg_mode="randint_target", maskinput=False), 1, c2),
+            neg_mode="randint_target", maskinput=False), 1, "citation2"),
         ("spd", dataclasses.replace(
             ho, dataset="citation2", two_hop_mode="sddmm", exact_two_hop=True,
             neg_mode="randint_target", maskinput=False, pad_deg=64,
-            pad_deg2=64, k_small=0), 1, c2)]
+            pad_deg2=64, k_small=0), 1, "citation2")]
     fam = dataclasses.replace(tables, predictor="cn2", pad_deg2=32, rec_k=8,
                               trndeg=32, tstdeg=32)
-    cases += [("cn2", fam, 1, ds),
-              ("cn3", dataclasses.replace(fam, predictor="cn3"), 1, ds),
-              ("cn2_depth2", dataclasses.replace(fam, depth=2), 1, ds),
-              ("cn2_learnpt", dataclasses.replace(fam, learnpt=True), 1, ds)]
+    cases += [("cn2", fam, 1, "Cora"),
+              ("cn3", dataclasses.replace(fam, predictor="cn3"), 1, "Cora"),
+              ("cn2_depth2", dataclasses.replace(fam, depth=2), 1, "Cora"),
+              ("cn2_learnpt", dataclasses.replace(fam, learnpt=True), 1, "Cora")]
+    return {name: (cfg, epochs, data) for name, cfg, epochs, data in cases}
+
+
+def run_reference_case(name, datasets=None):
+    """One reference case, card against CPU from the same weights: losses,
+    Hits@50 (MRR for citation2) and, after one epoch, the valid-edge scores
+    held together (rtol 1e-4).  On the CPU (DEVICE "cpu", the rehearsal)
+    the case runs once: a run compared with itself proves nothing.
+    ``datasets`` maps dataset names to the ones built already; returns the
+    case's keys of the phase's line."""
+    from ocn_tpu_torch.ops import window_gather as W
+    from ocn_tpu_torch.train.loop import Trainer
+
+    cfg, epochs, data = reference_cases()[name]
+    ds = datasets[data] if datasets and data in datasets else reference_dataset(data)
+    valid = ds.split_edge["valid"]["edge"]
+    losses, hits, scores = {}, {}, {}
+    for dev in dict.fromkeys(("cpu", DEVICE)):
+        tr = Trainer(cfg, ds, device=dev)
+        if name == "plain" and (int(tr.g.deg.max()) > cfg.pad_deg
+                                or int(tr.adj2.deg.max()) > cfg.pad_deg2):
+            raise AssertionError("reference graph exceeds the frame caps")
+        if name in ("window", "cn6", "ppa", "citation2", "cn2", "cn3",
+                    "cn2_depth2", "cn2_learnpt") and not (
+                tr._use_ell and tr._split):
+            raise AssertionError(f"{name} reference: tables or split off")
+        if name == "spd" and (tr.adj2 is not None
+                              or int(tr.g.deg.max()) > cfg.pad_deg):
+            raise AssertionError("spd reference: an A^2, or a cap binds")
+        if name == "grouped" and (tr._split != (3, 3)
+                                  or tr.x.dtype != torch.bfloat16):
+            raise AssertionError(f"grouped reference: split {tr._split}, "
+                                 f"features {tr.x.dtype}")
+        state = tr.init_state(0)
+        rng = np.random.default_rng(0)
+        W.window_rows.launches = 0
+        losses[dev] = [tr.train_epoch(state, rng, ep)[1]
+                       for ep in range(1, epochs + 1)]
+        res = evaluate(tr, state)
+        hits[dev] = ([res["valid"], res["test"]] if cfg.dataset == "citation2"
+                     else res["Hits@50"])
+        if epochs == 1:
+            g, a2 = tr._eval_graphs()
+            scores[dev] = tr._score_split(state, tr.encode(state), g, valid, a2)
+        if name.endswith("window") and dev != "cpu" and W.window_rows.launches == 0:
+            raise AssertionError(f"{name} reference: the kernel never ran")
+    if not np.isfinite(losses[DEVICE] + losses["cpu"]).all():
+        raise AssertionError(f"{name} reference: non-finite losses {losses}")
+    np.testing.assert_allclose(losses[DEVICE], losses["cpu"], rtol=1e-4)
+    np.testing.assert_allclose(hits[DEVICE], hits["cpu"], rtol=1e-4)
+    if scores:
+        # scores of order 1 after two Adam steps taken from float32 sums
+        # in another order on each side
+        np.testing.assert_allclose(scores[DEVICE], scores["cpu"],
+                                   rtol=1e-4, atol=1e-4)
+    prefix = "" if name == "plain" else f"{name}_"
+    metric = "mrr" if cfg.dataset == "citation2" else "hits50"
+    return {f"{prefix}loss_cpu": losses["cpu"],
+            f"{prefix}loss_cuda": losses[DEVICE],
+            f"{prefix}{metric}_cpu": hits["cpu"],
+            f"{prefix}{metric}_cuda": hits[DEVICE]}
+
+
+def phase_reference():
+    """Every reference case (reference_cases), each dataset built once."""
+    t0 = time.perf_counter()
+    datasets = {name: reference_dataset(name) for name in REFERENCE_DATA}
     out = {"phase": "reference"}
-    for name, cfg, epochs, ds in cases:
-        valid = ds.split_edge["valid"]["edge"]
-        losses, hits, scores = {}, {}, {}
-        for dev in ("cpu", DEVICE):
-            tr = Trainer(cfg, ds, device=dev)
-            if name == "plain" and (int(tr.g.deg.max()) > cfg.pad_deg
-                                    or int(tr.adj2.deg.max()) > cfg.pad_deg2):
-                raise AssertionError("reference graph exceeds the frame caps")
-            if name in ("window", "cn6", "ppa", "citation2", "cn2", "cn3",
-                        "cn2_depth2", "cn2_learnpt") and not (
-                    tr._use_ell and tr._split):
-                raise AssertionError(f"{name} reference: tables or split off")
-            if name == "spd" and (tr.adj2 is not None
-                                  or int(tr.g.deg.max()) > cfg.pad_deg):
-                raise AssertionError("spd reference: an A^2, or a cap binds")
-            if name == "grouped" and (tr._split != (3, 3)
-                                      or tr.x.dtype != torch.bfloat16):
-                raise AssertionError(f"grouped reference: split {tr._split}, "
-                                     f"features {tr.x.dtype}")
-            state = tr.init_state(0)
-            rng = np.random.default_rng(0)
-            W.window_rows.launches = 0
-            losses[dev] = [tr.train_epoch(state, rng, ep)[1]
-                           for ep in range(1, epochs + 1)]
-            res = evaluate(tr, state)
-            hits[dev] = ([res["valid"], res["test"]] if cfg.dataset == "citation2"
-                         else res["Hits@50"])
-            if epochs == 1:
-                g, a2 = tr._eval_graphs()
-                scores[dev] = tr._score_split(state, tr.encode(state), g, valid, a2)
-            if name.endswith("window") and dev != "cpu" and W.window_rows.launches == 0:
-                raise AssertionError(f"{name} reference: the kernel never ran")
-        if not np.isfinite(losses[DEVICE] + losses["cpu"]).all():
-            raise AssertionError(f"{name} reference: non-finite losses {losses}")
-        np.testing.assert_allclose(losses[DEVICE], losses["cpu"], rtol=1e-4)
-        np.testing.assert_allclose(hits[DEVICE], hits["cpu"], rtol=1e-4)
-        if scores:
-            # scores of order 1 after two Adam steps taken from float32 sums
-            # in another order on each side
-            np.testing.assert_allclose(scores[DEVICE], scores["cpu"],
-                                       rtol=1e-4, atol=1e-4)
-        prefix = "" if name == "plain" else f"{name}_"
-        metric = "mrr" if cfg.dataset == "citation2" else "hits50"
-        out.update({f"{prefix}loss_cpu": losses["cpu"],
-                    f"{prefix}loss_cuda": losses[DEVICE],
-                    f"{prefix}{metric}_cpu": hits["cpu"],
-                    f"{prefix}{metric}_cuda": hits[DEVICE]})
+    for name in reference_cases():
+        out.update(run_reference_case(name, datasets))
     out["seconds"] = time.perf_counter() - t0
     emit(out)
 
@@ -920,7 +990,7 @@ def phase_window_slice(ds, **overrides):
     g = tr._masked_graph(mp)
     adj2 = tr._local_adj2(mp)
     kernel_rows = W.window_rows
-    with torch.no_grad():
+    with torch.no_grad(), deterministic():
         h = tr.encode(state)
         y = h[g.col]
         valid = torch.ones(c, device=DEVICE)
@@ -1106,8 +1176,9 @@ def timed_eval(tr, state):
 
 def rescore(tr, state, pos, neg, idx, cases, per_group):
     """Score link groups of one prepared batch in eval mode twice, with
-    membership on the kernel and routed to its plain version, and hold the
-    scores together (rtol/atol 1e-5).  ``cases(pe, ne, chunk)`` lists the
+    membership on the kernel and routed to its plain version, both under
+    deterministic algorithms, and hold the scores together (rtol/atol
+    1e-5).  ``cases(pe, ne, chunk)`` lists the
     groups as (edges, chunks in the group, frame width or None); each group
     must launch membership ``per_group`` times."""
     import ocn_tpu_torch.ops.frame as frame
@@ -1119,7 +1190,7 @@ def rescore(tr, state, pos, neg, idx, cases, per_group):
     adj2, adj3 = tr._local_adj2(mp), tr._local_adj3(mp)
     c = tr._chunk()
     groups = cases(pe, ne, c)
-    with torch.no_grad():
+    with torch.no_grad(), deterministic():
         h = tr.encode(state)
         y = h[g.col] if tr.cfg.window_table else None
 
@@ -1631,6 +1702,223 @@ def phase_presets_slice(datasets, scale=1.0, large_scale=PRESET_SCALE,
     return launches, shapes
 
 
+def run_bench_program(env, anchors=None):
+    """The port's bench program in-process, as ``python -m
+    ocn_tpu_torch.scripts.bench`` runs it, with exactly the OCN_BENCH_*
+    knobs of ``env`` set; returns its record with its JSON line, seconds,
+    the kernels' launches and the peak device memory."""
+    from ocn_tpu_torch.ops import window_gather as W
+    from ocn_tpu_torch.ops.membership import membership_counts
+    from ocn_tpu_torch.scripts import bench
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("OCN_BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    out = io.StringIO()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        membership_counts.launches = 0
+        W.window_rows.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rec = bench.main(anchors=anchors)
+        seconds = time.perf_counter() - t0
+        launches = {"membership": membership_counts.launches,
+                    "window_rows": W.window_rows.launches}
+    finally:
+        for k in env:
+            del os.environ[k]
+        os.environ.update(saved)
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("{")]
+    if [json.loads(line) for line in lines] != [rec]:
+        raise AssertionError(f"bench program: printed {lines}, returned {rec}")
+    value = rec["value"]
+    if not (math.isfinite(value) and value > 0):
+        raise AssertionError(f"bench program: value {value}")
+    if not all(k in rec for k in ("anchor_rowgather_ms", "anchor_matmul_tflops")):
+        raise AssertionError(f"bench program: no anchors in {rec}")
+    return {"seconds": seconds, "env": env, "line": rec,
+            "membership_launches": launches["membership"],
+            "window_launches": launches["window_rows"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_bench_program(env=None, anchors=None):
+    """The port's bench program (ocn_tpu_torch/scripts/bench.py) at its
+    defaults, then its window-table variant (OCN_BENCH_WINDOW=1,
+    OCN_BENCH_PAIR=0): the metric, a finite value above 0, both anchors,
+    membership launched in the first and the window gather in the second.
+    ``env`` adds knobs to both and ``anchors`` shrinks the anchors, for the
+    rehearsal on the CPU; returns (membership launches, window launches)."""
+    t0 = time.perf_counter()
+    env = dict(env or {})
+    if DEVICE == "cpu":
+        env["OCN_BENCH_PLATFORM"] = "cpu"
+    defaults = run_bench_program(env, anchors)
+    window = run_bench_program({**env, "OCN_BENCH_WINDOW": "1",
+                                "OCN_BENCH_PAIR": "0"}, anchors)
+    metric = defaults["line"]["metric"]
+    if metric != "train_edges_per_s_cn5_collab" or window["line"]["metric"] != metric:
+        raise AssertionError(f"bench program: metrics {metric}, "
+                             f"{window['line']['metric']}")
+    if defaults["membership_launches"] == 0:
+        raise AssertionError("bench program: membership never launched")
+    if window["window_launches"] == 0:
+        raise AssertionError("bench program, window variant: window_rows "
+                             "never launched")
+    emit({"phase": "bench_program", "seconds": time.perf_counter() - t0,
+          "defaults": defaults, "window_variant": window})
+    return (defaults["membership_launches"] + window["membership_launches"],
+            window["window_launches"])
+
+
+def _state_tensors(state):
+    """Every tensor of a TrainState: module parameters and buffers, and the
+    Adam state by (group, parameter index, key)."""
+    out = {f"encoder.{k}": v for k, v in state.encoder.state_dict().items()}
+    out.update({f"predictor.{k}": v
+                for k, v in state.predictor.state_dict().items()})
+    return {**out, **_opt_tensors(state.opt.state_dict())}
+
+
+def _opt_tensors(opt_state):
+    return {f"opt.{i}.{k}": v for i, st in opt_state["state"].items()
+            for k, v in st.items()}
+
+
+def _saved_tensors(path):
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    out = {f"encoder.{k}": v for k, v in saved["encoder"].items()}
+    out.update({f"predictor.{k}": v for k, v in saved["predictor"].items()})
+    return {**out, **_opt_tensors(saved["opt"])}
+
+
+def phase_cli_slice(**overrides):
+    """cli.run on presets("Cora", "cn5") at its own width, 2 epochs of one
+    run with savemod, save_gemb, a checkpoint_dir and a profile_dir, in a
+    temporary directory that is also the working directory (rec/, gemb/):
+    the Chrome trace names the membership kernel (on the card), metrics.jsonl
+    holds both epochs, a second run with loadmod restores the saved step's
+    parameters, buffers and Adam state bit for bit, an evaluate of the
+    restored state equals the one run 1 logged for that step, and hpo.main
+    runs 2 trials of the preset at 1 epoch.  The evaluations run with
+    deterministic algorithms, so that the card's scatter-adds sum in one
+    order.  ``overrides`` shrink the preset for the rehearsal; returns the
+    membership launches of the first run."""
+    import tempfile
+
+    from ocn_tpu_torch import cli
+    from ocn_tpu_torch.config import presets
+    from ocn_tpu_torch.ops.membership import membership_counts
+    from ocn_tpu_torch.train import checkpoint, hpo
+    from ocn_tpu_torch.train.loop import Trainer, epoch_ell_rng
+
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    try:
+        with deterministic(), tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            ckpt, prof = os.path.join(tmp, "ckpt"), os.path.join(tmp, "profile")
+            cfg = presets("Cora", "cn5", epochs=2, runs=1, savemod=True,
+                          save_gemb=True, checkpoint_dir=ckpt, profile_dir=prof,
+                          **overrides)
+            membership_counts.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            summary = cli.run(cfg, device=DEVICE)
+            run_s = time.perf_counter() - t1
+            launches = membership_counts.launches
+            peak = torch.cuda.max_memory_allocated() / 1e9
+
+            with open(os.path.join(prof, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = sorted({ev["name"] for ev in events
+                              if ev.get("cat") == "kernel"})
+            if DEVICE != "cpu" and not any("membership" in k for k in kernels):
+                raise AssertionError(f"cli slice: no membership kernel among "
+                                     f"the trace's {len(kernels)} kernel names")
+            with open(os.path.join("rec", f"{cfg.model}_{cfg.predictor}",
+                                   "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            scalars = [r for r in records if "step" in r]
+            if {r["step"] for r in scalars} != {1, 2} or records[0]["tag"] != "hyperparams":
+                raise AssertionError(f"cli slice: metrics.jsonl {records[:3]}")
+            steps = sorted(int(d) for d in os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+            if not steps:
+                raise AssertionError("cli slice: no new best validation, no checkpoint")
+            step = steps[-1]
+            gemb = np.load(os.path.join(
+                "gemb", f"Cora_{cfg.model}_{cfg.predictor}_{cfg.hiddim}.npy"))
+
+            # run 2 resumes; the state load_state returns is held
+            restored = {}
+            load_state = checkpoint.load_state
+
+            def held(path, state, step=None):
+                state, step = load_state(path, state, step)
+                restored.update(step=step, tensors={
+                    k: v.detach().cpu().clone()
+                    for k, v in _state_tensors(state).items()})
+                return state, step
+
+            checkpoint.load_state = held
+            try:
+                cli.run(dataclasses.replace(cfg, loadmod=True, savemod=False,
+                                            save_gemb=False, profile_dir="",
+                                            epochs=1), device=DEVICE)
+            finally:
+                checkpoint.load_state = load_state
+            want = _saved_tensors(os.path.join(ckpt, str(step), "state.pt"))
+            got = restored["tensors"]
+            if restored["step"] != step or got.keys() != want.keys() or not all(
+                    torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"cli slice: run 2 restored step "
+                                     f"{restored['step']}, not step {step} bit for bit")
+            n_adam = sum(k.startswith("opt.") for k in want)
+
+            # the restored state's evaluate against run 1's at that step
+            tr = Trainer(cfg, cli.run_dataset(cfg, 0), device=DEVICE)
+            state, _ = checkpoint.load_state(ckpt, tr.init_state(cfg.seed))
+            if tr._use_ell:  # the saved epoch's tables (trainer state)
+                tr._refresh_ell(epoch_ell_rng(step))
+            results = tr.evaluate(state)
+            logged = {r["tag"].rsplit("_", 1)[0]: [r["trn"], r["val"], r["tst"]]
+                      for r in scalars if r["step"] == step}
+            if {k: list(v) for k, v in results.items()} != logged:
+                raise AssertionError(f"cli slice: restored evaluate {results} "
+                                     f"vs run 1's {logged}")
+
+            hpo_out = os.path.join(tmp, "hpo")
+            argv = ["--trials", "2", "--hpo_out", hpo_out, "--dataset", "Cora",
+                    "--predictor", "cn5", "--preset", "--epochs", "1", "--runs", "1"]
+            argv += [f"--{k}={v}" for k, v in overrides.items()]
+            if DEVICE == "cpu":
+                argv += ["--platform", "cpu"]
+            t1 = time.perf_counter()
+            best = hpo.main(argv)
+            hpo_s = time.perf_counter() - t1
+            with open(os.path.join(hpo_out, "hpo_Cora_cn5.jsonl")) as f:
+                trials = [json.loads(line) for line in f]
+            if len(trials) != 2 or any("error" in t for t in trials):
+                raise AssertionError(f"cli slice: hpo trials {trials}")
+    finally:
+        os.chdir(cwd)
+    emit({"phase": "cli_slice", "seconds": time.perf_counter() - t0,
+          "config": {k: getattr(cfg, k) for k in (
+              "model", "mplayers", "hiddim", "batch_size", "testbs", "epochs")},
+          "run_s": run_s, "summary": summary, "membership_launches": launches,
+          "trace_kernel_names": len(kernels),
+          "trace_membership_names": [k for k in kernels if "membership" in k],
+          "metrics_records": len(records), "checkpoint_steps": steps,
+          "resumed_step": step, "restored_tensors": len(want),
+          "restored_adam_tensors": n_adam, "gemb_shape": list(gemb.shape),
+          "restored_eval": results, "hpo_s": hpo_s,
+          "hpo_trials": [t["val_mean"] for t in trials],
+          "hpo_best_val": best["val_mean"], "peak_mem_gb": peak})
+    return launches
+
+
 def phase_gather_bench(**sizes):
     """The row-gather instrument; ``sizes`` shrink it for the rehearsal."""
     from ocn_tpu_torch.ops import row_gather as RG
@@ -1720,6 +2008,10 @@ def run_phases(jobs) -> int:
     smi = phase_build()
     kern = phase_kernels()
     phase_reference()
+    # early in the process: torch.profiler's trace keeps fewer of a short
+    # window's kernels as the process ages (PERF.md section 6, PR 6)
+    cli_launches = phase_cli_slice()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ds = synthetic_dataset("collab", seed=0, scale=1.0).reorder_bfs()
     t_data = time.perf_counter() - t0
@@ -1749,6 +2041,11 @@ def run_phases(jobs) -> int:
     shapes = shapes + phase_shapes
     del ds
     torch.cuda.empty_cache()
+    # the bench program makes its own dataset, as python -m runs it
+    bench_launches, bench_window = phase_bench_program()
+    new["bench_program"] = bench_launches
+    new["cli_slice"] = cli_launches
+    torch.cuda.empty_cache()
     # bench.py's ppa and citation2 shapes and the spd preset, each on a
     # dataset of its own, made here
     ds, data = made_dataset(jobs["ppa"])
@@ -1774,15 +2071,18 @@ def run_phases(jobs) -> int:
     w_err, w_timings = kern["window"]
     emit({"kernels": [
         kernel_entry("membership_counts", membership, membership.REPLACES,
-                     m_launches, m_err, m_timing,
+                     m_launches + bench_launches + cli_launches, m_err, m_timing,
+                     launches_slice=m_launches,
                      launches_window_slice=w_train["membership"] + w_eval["membership"],
                      launches_bench_slice=b_launches,
                      **{f"launches_{name}": n for name, n in new.items()},
                      model_shapes=m_shapes),
         kernel_entry("window_rows", window_gather, window_gather.REPLACES,
-                     w_train["window"] + w_eval["window"], w_err, w_timings[0],
+                     w_train["window"] + w_eval["window"] + bench_window,
+                     w_err, w_timings[0],
                      launches_train=w_train["window"],
-                     launches_eval=w_eval["window"], k16=w_timings[1]),
+                     launches_eval=w_eval["window"],
+                     launches_bench_program=bench_window, k16=w_timings[1]),
         kernel_entry("window_rows:gather_w", window_gather,
                      "scripts/bench_gather.py:148", g_launches["window_rows"],
                      *kern["window_bf16"],

@@ -8,14 +8,21 @@ best-by-validation tracking.
 runs on the CUDA device; ``--platform cpu`` runs on the CPU.  Boolean flags
 take an optional value (``--ln``, ``--ln true``, ``--ln false``) or the
 ``--no-`` form.  citation2 is scored by MRR (Trainer.evaluate_mrr), every
-other dataset by Hits@K.  Fields the port does not implement yet raise
-NotImplementedError naming the field (Config.require_supported); so do the
-checkpoint, embedding-export and profiling flags.
+other dataset by Hits@K.  Per-epoch results go to a MetricLogger in
+``rec/{model}_{predictor}``.  ``--savemod`` with ``--checkpoint_dir`` saves
+the whole train state at each new best validation, ``--loadmod`` resumes
+from the latest one; ``--save_gemb`` and ``--savex`` write the best state's
+hidden states and Embedding table under ``gemb/``; ``--profile_dir`` traces
+epoch 1 of run 0 with torch.profiler into a Chrome trace there.  Meshes and
+node sharding raise NotImplementedError naming the field
+(Config.require_supported).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -26,6 +33,8 @@ from ocn_tpu_torch.nn.conv import CONV_NAMES
 from ocn_tpu_torch.nn.predictors import PREDICTOR_NAMES
 from ocn_tpu_torch.train.loop import Trainer
 from ocn_tpu_torch.train.losses import LOSSES
+from ocn_tpu_torch.utils.logging import MetricLogger
+from ocn_tpu_torch.utils.profiling import chrome_trace
 
 
 def _bool(text: str) -> bool:
@@ -79,37 +88,53 @@ HEADLINE = {  # best-by-validation headline metric per dataset
 }
 
 
+def run_dataset(cfg: Config, run_i: int = 0):
+    """The dataset of run ``run_i``: seeded by seed + run_i (each Planetoid
+    run draws a fresh random split), BFS-relabelled when cfg.reorder says."""
+    ds = loaddataset(cfg.dataset, cfg.use_valedges_as_input, cfg.load,
+                     root=cfg.data_root, seed=cfg.seed + run_i,
+                     synthetic_scale=cfg.synthetic_scale)
+    return ds.reorder_bfs() if cfg.reorder == "bfs" else ds
+
+
 def run(cfg: Config, device: str = "cuda") -> dict:
     """Multi-run training with best-by-validation tracking (reference
     main()).  ``cfg.platform == "cpu"`` also selects the CPU."""
-    for field in ("savemod", "loadmod", "save_gemb", "savex"):
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"Config.{field}: checkpoints and embedding export are not "
-                "ported to ocn_tpu_torch yet (ROADMAP.md)")
-    if cfg.profile_dir:
-        raise NotImplementedError("Config.profile_dir is not ported yet")
     if cfg.platform == "cpu":
         device = "cpu"
+    logger = MetricLogger(f"rec/{cfg.model}_{cfg.predictor}")
+    try:
+        logger.text("hyperparams", json.dumps(dataclasses.asdict(cfg)))
+        return _run(cfg, device, logger)
+    finally:
+        logger.close()
+
+
+def _run(cfg: Config, device: str, logger: MetricLogger) -> dict:
     planetoid = cfg.dataset in ("Cora", "Citeseer", "Pubmed")
     headline = HEADLINE.get(cfg.dataset, "Hits@100")
     mrr_mode = cfg.dataset == "citation2"
+    gemb = f"gemb/{cfg.dataset}_{cfg.model}_{cfg.predictor}_{cfg.hiddim}"
     ret = []
     ds = None
     for run_i in range(cfg.runs):
         if ds is None or planetoid:  # fresh random split per Planetoid run
-            ds = loaddataset(cfg.dataset, cfg.use_valedges_as_input, cfg.load,
-                             root=cfg.data_root, seed=cfg.seed + run_i,
-                             synthetic_scale=cfg.synthetic_scale)
-            if cfg.reorder == "bfs":
-                ds = ds.reorder_bfs()
+            ds = run_dataset(cfg, run_i)
         tr = Trainer(cfg, ds, device=device)
         state = tr.init_state(cfg.seed + run_i)
+        if cfg.loadmod and cfg.checkpoint_dir:
+            # the whole train state: parameters, EMA, sched and Adam
+            from ocn_tpu_torch.train.checkpoint import load_state
+            state, step0 = load_state(cfg.checkpoint_dir, state)
+            print(f"resumed from {cfg.checkpoint_dir} step {step0}", flush=True)
         rng = np.random.default_rng(cfg.seed + run_i)
         best = None
         for epoch in range(1, cfg.epochs + 1):
             t1 = time.time()
-            state, loss = tr.train_epoch(state, rng, epoch)
+            profiling = cfg.profile_dir and epoch == 1 and run_i == 0
+            with (chrome_trace(cfg.profile_dir, tr.device.type == "cuda")
+                  if profiling else contextlib.nullcontext()):
+                state, loss = tr.train_epoch(state, rng, epoch)
             ttrain = time.time() - t1
             t1 = time.time()
             if mrr_mode:
@@ -122,8 +147,22 @@ def run(cfg: Config, device: str = "cuda") -> dict:
             if best is None:
                 best = {k: list(v) for k, v in results.items()}
             for key, (trn, val, tst) in results.items():
+                logger.scalars(f"{key}_{run_i}",
+                               {"trn": trn, "val": val, "tst": tst}, epoch)
                 if val > best[key][1]:
                     best[key] = [trn, val, tst]
+                    # best-by-validation saves (reference
+                    # NeighborOverlap_large.py:334-340)
+                    if cfg.savemod and cfg.checkpoint_dir:
+                        from ocn_tpu_torch.train.checkpoint import save_state
+                        save_state(cfg.checkpoint_dir, state, epoch)
+                    if cfg.save_gemb:
+                        from ocn_tpu_torch.train.checkpoint import save_embeddings
+                        save_embeddings(f"{gemb}.npy", tr.encode(state))
+                    if cfg.savex and state.encoder.emb is not None:
+                        from ocn_tpu_torch.train.checkpoint import save_embeddings
+                        save_embeddings(f"{gemb}_{run_i}.npy",
+                                        state.encoder.emb.weight)
                 print(
                     f"{key}  Run: {run_i + 1:02d}, Epoch: {epoch:02d}, "
                     f"Loss: {loss:.4f}, Train: {100 * trn:.2f}%, "

@@ -20,8 +20,6 @@ the card).
 cn6's third frame (``cn3_frame``) reads a precomputed A^3 the same way,
 and the incomplete family (cn2/cn3/cn4) takes the CN set with its two
 residual sets from ``cn_residual_frames``.
-
-Not ported yet: the iid sampler.
 """
 from __future__ import annotations
 
@@ -58,27 +56,33 @@ class NeighborFrame:
 
 def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
                      gen: Optional[torch.Generator] = None,
-                     drop: Optional[Tuple[torch.Generator, float]] = None
-                     ) -> NeighborFrame:
-    """The (<=k)-padded neighbor list of each node, "window" sampling.
+                     drop: Optional[Tuple[torch.Generator, float]] = None,
+                     sampling: str = "window") -> NeighborFrame:
+    """The (<=k)-padded neighbor list of each node.
 
-    Rows with degree <= k are taken exactly; capped rows (degree > k) take a
-    contiguous window of k entries with importance weight deg/k, at a
-    uniform offset drawn from ``gen`` (the first k entries when ``gen`` is
-    None).  Adjacency values multiply the weights, so masked entries drop
-    out by value.
+    Rows with degree <= k are taken exactly; capped rows (degree > k) get
+    importance weight deg/k.  ``sampling="window"`` (the trainer's): a
+    capped row takes a contiguous window of k entries at a uniform offset
+    drawn from ``gen`` (the first k entries when ``gen`` is None).
+    ``sampling="iid"`` (the reference's with-replacement draw, kept for
+    parity experiments; the trainer never selects it): each lane of a
+    capped row draws its entry independently, offset min(floor(u*deg),
+    deg-1) for a (B, k) uniform u from ``gen``, and each row's lanes are
+    then sorted by id (empty and masked lanes hold the sentinel n_nodes);
+    with ``gen`` None it falls back to "window".  Adjacency values multiply
+    the weights, so masked entries drop out by value.
 
-    With an ELL table attached (``g.ell``, sparse/ell.py) and k <= ell_k the
-    windows come from the table, one row gather: their offsets were frozen
-    when the table was built, so ``gen`` is ignored, and k < ell_k takes the
-    leading lanes of the frozen window.
+    With an ELL table attached (``g.ell``, sparse/ell.py), "window"
+    sampling and k <= ell_k the windows come from the table, one row
+    gather: their offsets were frozen when the table was built, so ``gen``
+    is ignored, and k < ell_k takes the leading lanes of the frozen window.
 
     ``drop=(gen, p)``: lane-mask DropAdj.  Each gathered lane is kept with
     probability 1-p (one (B, k) uniform draw of that generator, after the
     window offsets) and kept weights are scaled by 1/(1-p); the graph's
     values stay as they are, so its packed and ELL layouts stay attached."""
     if drop is not None:
-        frame = gather_neighbors(g, nodes, k, gen)
+        frame = gather_neighbors(g, nodes, k, gen, sampling=sampling)
         dgen, p = drop
         keep = torch.rand(frame.w.shape, generator=dgen,
                           device=frame.w.device) < 1.0 - p
@@ -92,7 +96,7 @@ def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
     capped = deg > k
     w_row = torch.where(capped, deg.float() / k, 1.0)
     valid = lane < torch.clamp(deg, max=k)[:, None]
-    if g.ell is not None and k <= g.ell_k:
+    if g.ell is not None and sampling == "window" and k <= g.ell_k:
         pk = g.ell[nodes]
         if k < g.ell_k:
             pk = pk[:, :k]
@@ -102,6 +106,8 @@ def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
         pos0 = torch.clamp(start + g.ell_off[nodes], max=max(g.nnz - k, 0))
         return NeighborFrame(ids=ids, w=w, n_nodes=g.n_nodes,
                              pos=pos0[:, None] + lane)
+    if sampling == "iid" and gen is not None:
+        return _gather_iid(g, nodes, k, gen, deg, start, capped, w_row, valid)
     if gen is not None:
         u = torch.rand(b, generator=gen, device=nodes.device)
         woff = torch.where(capped, (u * (deg - k + 1).float()).int(), 0)
@@ -109,19 +115,42 @@ def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
         woff = torch.zeros_like(deg)
     pos0 = torch.clamp(start + woff, max=max(g.nnz - k, 0))
     pos = pos0[:, None] + lane
-    flat = pos.long()
-    if g.packed is not None:
-        pk = g.packed[flat]
-        ids = pk & ((1 << g.col_bits) - 1)
-        vals = (pk >> g.col_bits).float()
-    else:
-        ids = g.col[flat]
-        vals = g.val[flat]
+    ids, vals = _entries(g, pos)
     w = torch.where(valid, w_row[:, None] * vals, 0.0)
     # invalid suffix lanes read into the next CSR row; sentinel-ize them so
     # rows stay ascending for the searchsorted membership branch
     ids = torch.where(valid, ids, g.n_nodes).int()
     return NeighborFrame(ids=ids, w=w, n_nodes=g.n_nodes, pos=pos)
+
+
+def _entries(g: Graph, pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Column ids and values of the CSR entries at ``pos``: one read of
+    the packed col|count layout where the graph has it."""
+    flat = pos.long()
+    if g.packed is not None:
+        pk = g.packed[flat]
+        return pk & ((1 << g.col_bits) - 1), (pk >> g.col_bits).float()
+    return g.col[flat], g.val[flat]
+
+
+def _gather_iid(g: Graph, nodes, k, gen, deg, start, capped, w_row, valid
+                ) -> NeighborFrame:
+    """gather_neighbors' with-replacement draw: exact lanes for uncapped
+    rows, min(floor(u*deg), deg-1) offsets for capped ones, lanes sorted
+    by id."""
+    lane = torch.arange(k, dtype=torch.int32, device=nodes.device)[None, :]
+    exact_off = torch.minimum(lane, torch.clamp(deg, min=1)[:, None] - 1)
+    u = torch.rand((nodes.shape[0], k), generator=gen, device=nodes.device)
+    samp_off = torch.minimum((u * deg[:, None].float()).int(), deg[:, None] - 1)
+    off = torch.where(capped[:, None], samp_off, exact_off)
+    pos = torch.clamp(start[:, None] + off, max=g.nnz - 1)
+    ids, vals = _entries(g, pos)
+    w = torch.where(valid, w_row[:, None] * vals, 0.0)
+    ids = torch.where(valid & (vals != 0), ids, g.n_nodes).int()
+    # ascending rows for the searchsorted membership branch
+    ids, order = torch.sort(ids, dim=-1, stable=True)
+    return NeighborFrame(ids=ids, w=torch.gather(w, -1, order), n_nodes=g.n_nodes,
+                         pos=torch.gather(pos, -1, order))
 
 
 # above this Kq*Ks product the O(Kq*Ks) compare stops paying for itself

@@ -104,6 +104,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def epoch_ell_rng(epoch: int) -> np.random.Generator:
+    """The generator train_epoch draws the ELL tables' offsets from at
+    ``epoch`` (derived from the epoch alone, as in the JAX package).  The
+    tables belong to the trainer, not to the TrainState: a state restored
+    from a checkpoint evaluates as it did when saved once the tables are
+    rebuilt from this generator of the saved epoch."""
+    return np.random.default_rng((epoch * 0x9E3779B1 + 0x85EBCA77) & 0xFFFFFFFF)
+
+
 def _largest_divisor_leq(n: int, target: int) -> int:
     """Largest divisor of ``n`` that is <= ``target`` (the link chunk must
     divide batch_size exactly); warns when it collapses far below target."""
@@ -613,8 +622,7 @@ class Trainer:
                 self._ell is None or (epoch - 1) % max(cfg.ell_refresh, 1) == 0):
             # a generator derived from the epoch, so the main stream stays
             # the same as with ell_tables off
-            self._refresh_ell(np.random.default_rng(
-                (epoch * 0x9E3779B1 + 0x85EBCA77) & 0xFFFFFFFF))
+            self._refresh_ell(epoch_ell_rng(epoch))
         pos = self.train_edges
         e = pos.shape[1]
         perm = rng.permutation(e)

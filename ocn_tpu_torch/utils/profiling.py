@@ -7,10 +7,13 @@ Kernels launched from the port's ctypes libraries appear in the profiler's
 trace under their CUDA names (``window_rows_kernel``, ``membership_kernel``,
 ...), like PyTorch's own.  ``chip_smoke.py`` reads these numbers; the CUDA
 events it also takes without a spin time whole calls, wrapper included.
+``chrome_trace`` is the CLI's ``--profile_dir``: a region's trace as a
+file, the counterpart of ``jax.profiler.trace``.
 """
 from __future__ import annotations
 
 import collections
+import os
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -137,3 +140,16 @@ def profile_region(fn: Callable[[], object], cuda: bool = True
         return out, {"window_ms": (window[1] - window[0]) / 1e3,
                      "device_busy_share": None, "top_kernels": []}
     return out, step_breakdown(device_intervals(prof), window)
+
+
+def chrome_trace(profile_dir: str, cuda: bool = True) -> profile:
+    """A profiler over a region (host activity, and the card's with
+    ``cuda``) whose Chrome trace is written to ``profile_dir/trace.json``
+    when the region ends."""
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(profile_dir, exist_ok=True)
+
+    def export(prof) -> None:
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+    return profile(activities=acts, on_trace_ready=export)

@@ -6,14 +6,20 @@ parameter tree (``TrainState.params``: ``{"encoder": ..., "predictor":
 arrays (``jax.device_get`` gives them) and copies them into a port
 ``GCNEncoder`` (either conv stack) and predictor (any of cn1-cn9),
 including the EMA buffers where the predictor has them and the incomplete
-family's "sched" state (``alpha2``).  Dense
+family's "sched" state (``alpha2``).  ``state_from_jax(jstate, state)``
+carries a whole JAX ``TrainState`` across, the optimizer too: the optax
+Adam moments and counts of both parameter groups (``optax.multi_transform``
+over two ``optax.adam``) become ``torch.optim.Adam``'s ``exp_avg``,
+``exp_avg_sq`` and ``step``, laid out as the parameters are, so a JAX run
+can be continued by the port.  Dense
 kernels (in, out) are transposed into Linear weights (out, in); LayerNorm
 ``scale``/``bias`` become ``weight``/``bias``.  Every leaf of the tree must
 land somewhere, and every shape must match: a mismatch raises.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+import copy
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -147,3 +153,78 @@ def params_from_jax(params: Mapping, ema: Mapping, encoder: nn.Module,
     load_encoder(encoder, params["encoder"])
     load_predictor(predictor, params["predictor"], ema, sched)
     return encoder, predictor
+
+
+def _find_adam(node):
+    """The optax ``ScaleByAdamState`` inside one group's state (a
+    ``MaskedState`` around the chain's tuple), found by its fields."""
+    if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+        return node
+    inner = getattr(node, "inner_state", node)
+    if isinstance(inner, (tuple, list)):
+        for child in inner:
+            found = _find_adam(child)
+            if found is not None:
+                return found
+    elif inner is not node:
+        return _find_adam(inner)
+    return None
+
+
+def adam_groups(opt_state) -> Dict[str, Dict[str, object]]:
+    """{"encoder": {"count", "mu", "nu"}, "predictor": {...}} from the JAX
+    trainer's optimizer state: one ``optax.adam`` per group under
+    ``optax.multi_transform``, whose moment trees hold the group's own
+    subtree (the other is masked)."""
+    out = {}
+    for label, group in opt_state.inner_states.items():
+        adam = _find_adam(group)
+        if adam is None:
+            raise KeyError(f"no Adam state in optimizer group {label!r}")
+        out[label] = {"count": adam.count, "mu": adam.mu[label],
+                      "nu": adam.nu[label]}
+    return out
+
+
+def _as_parameters(module: nn.Module, load, tree) -> List[torch.Tensor]:
+    """A tree shaped like ``module``'s JAX parameters as tensors laid out
+    like ``module.parameters()``: loaded into a copy of the module by the
+    same mapping as its weights (transposed Dense kernels included)."""
+    twin = copy.deepcopy(module)
+    load(twin, tree)
+    return [p.detach() for p in twin.parameters()]
+
+
+def adam_from_jax(opt: torch.optim.Optimizer, encoder: nn.Module,
+                  predictor: nn.Module, opt_state, ema: Mapping,
+                  sched: Optional[Mapping] = None) -> None:
+    """Set ``opt`` (the port's two-group Adam: encoder, then predictor)
+    to the JAX optimizer state: each parameter's step is its group's optax
+    count, its moments optax's mu and nu."""
+    groups = adam_groups(opt_state)
+    loaders = (("encoder", encoder, load_encoder),
+               ("predictor", predictor,
+                lambda m, t: load_predictor(m, t, ema, sched)))
+    for group, (label, module, load) in zip(opt.param_groups, loaders):
+        params = list(group["params"])
+        if [id(p) for p in params] != [id(p) for p in module.parameters()]:
+            raise ValueError(f"optimizer group {label!r} does not hold "
+                             f"the {label}'s parameters in order")
+        jg = groups[label]
+        step = float(np.asarray(jg["count"]))
+        mu = _as_parameters(module, load, jg["mu"])
+        nu = _as_parameters(module, load, jg["nu"])
+        for p, m, v in zip(params, mu, nu):
+            opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
+                            "exp_avg": m.clone(), "exp_avg_sq": v.clone()}
+
+
+def state_from_jax(jstate, state):
+    """Carry a JAX ``TrainState`` (NumPy leaves, as ``jax.device_get``
+    gives it) into the port's ``TrainState`` ``state``: parameters, EMA,
+    sched and the Adam state; returns ``state``."""
+    params_from_jax(jstate.params, jstate.ema, state.encoder, state.predictor,
+                    jstate.sched)
+    adam_from_jax(state.opt, state.encoder, state.predictor, jstate.opt_state,
+                  jstate.ema, jstate.sched)
+    return state

@@ -15,6 +15,7 @@ import torch
 from ocn_tpu_torch.ops import row_gather as RG
 from ocn_tpu_torch.ops import window_gather as W
 from ocn_tpu_torch.scripts import bench_gather as G
+from torch_parity import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def _bits(a) -> np.ndarray:

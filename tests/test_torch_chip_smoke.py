@@ -6,54 +6,15 @@ wrapped to count their (plain-version) calls, so the phases' own checks
 (launch counts, finite losses, Hits ranges, kernel-against-plain chunk
 scores, feature and hidden dtypes) run as they do on the card.  The step
 profile runs with host tracing only: a CPU run has no device numbers."""
-import collections
 import json
 
 import numpy as np
 import pytest
-import torch
 
 import chip_smoke
+from chip_rehearsal import FRAME_CASES, STACK_CASES, TINY, on_cpu, one_thread  # noqa: F401 (fixtures)
 from ocn_tpu_torch.data.loaders import synthetic_dataset
-from ocn_tpu_torch.ops import frame
-from ocn_tpu_torch.ops import membership as M
-from ocn_tpu_torch.ops import row_gather as RG
-from ocn_tpu_torch.ops import window_gather as W
 from ocn_tpu_torch.utils import profiling
-
-TINY = dict(batch_size=1024, testbs=1024, linkbatchsize=128, hiddim=16)
-
-
-def _counting(fn, key=None):
-    """fn, counting its calls as the kernel wrappers count launches, and by
-    ``key(*args)`` as membership's counts them by (rows, Kq, Ks)."""
-    def wrapped(*args, **kwargs):
-        wrapped.launches += 1
-        if key is not None:
-            wrapped.shapes[key(*args)] += 1
-        return fn(*args, **kwargs)
-    wrapped.launches = 0
-    wrapped.shapes = collections.Counter()
-    return wrapped
-
-
-def _membership_shape(q, ids, w):
-    return (q.numel() // q.shape[-1], q.shape[-1], ids.shape[-1])
-
-
-@pytest.fixture
-def on_cpu(monkeypatch):
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
-    membership = _counting(M.membership_counts, _membership_shape)
-    monkeypatch.setattr(M, "membership_counts", membership)
-    monkeypatch.setattr(frame, "membership_counts", membership)
-    monkeypatch.setattr(W, "window_rows", _counting(W.window_rows))
-    monkeypatch.setattr(RG, "row_rows", _counting(RG.row_rows))
-    monkeypatch.setattr(RG, "sorted_block_rows", _counting(RG.sorted_block_rows))
-
 
 def test_slice_phases_on_cpu(on_cpu, capsys):
     ds = synthetic_dataset("collab", seed=0, scale=0.01).reorder_bfs()
@@ -69,10 +30,27 @@ def test_slice_phases_on_cpu(on_cpu, capsys):
     assert lines[1]["chunk_score_max_abs_err"] == 0.0
 
 
-def test_reference_phase_on_cpu(on_cpu, capsys):
+def test_reference_phase_on_cpu(on_cpu, monkeypatch, capsys):
+    """phase_reference runs every case once, in order, on datasets built
+    once each, and prints one line of their keys; the cases themselves are
+    rehearsed one by one in test_torch_chip_smoke_frames.py and
+    test_torch_chip_smoke_stacks.py, which between them hold every case."""
+    ran = []
+
+    def case(name, datasets):
+        assert set(datasets) == set(chip_smoke.REFERENCE_DATA)
+        ran.append(name)
+        return {f"{name}_loss_cpu": [1.0]}
+
+    monkeypatch.setattr(chip_smoke, "reference_dataset", lambda name: name)
+    monkeypatch.setattr(chip_smoke, "run_reference_case", case)
     chip_smoke.phase_reference()
     line = json.loads(capsys.readouterr().out)
-    assert np.isfinite(line["loss_cpu"] + line["window_loss_cpu"]).all()
+    cases = list(chip_smoke.reference_cases())
+    assert ran == cases and len(cases) == 17
+    assert line["phase"] == "reference" and line["seconds"] >= 0
+    assert all(line[f"{name}_loss_cpu"] == [1.0] for name in cases)
+    assert FRAME_CASES + STACK_CASES == tuple(cases)
 
 
 def test_bench_and_gather_phases_on_cpu(on_cpu, capsys):

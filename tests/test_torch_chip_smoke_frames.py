@@ -1,0 +1,21 @@
+"""chip_smoke.py's reference cases of the frame-based family (plain, window, grouped
+bfloat16, cn7, cn8, cn9, cn1, cn6, hoisted cn5), each rehearsed
+on the CPU (tests/chip_rehearsal.py): the case runs once there, with every
+check the card run makes apart from the card-against-CPU comparison."""
+import numpy as np
+import pytest
+
+import chip_smoke
+from chip_rehearsal import FRAME_CASES, on_cpu, one_thread  # noqa: F401 (fixtures)
+
+
+@pytest.mark.parametrize("name", FRAME_CASES)
+def test_reference_phase_on_cpu(on_cpu, name):
+    keys = chip_smoke.run_reference_case(name)
+    prefix = "" if name == "plain" else f"{name}_"
+    losses = keys[f"{prefix}loss_cpu"]
+    assert keys[f"{prefix}loss_cuda"] == losses
+    assert len(losses) == chip_smoke.reference_cases()[name][1]
+    assert np.isfinite(losses).all()
+    metric = next(k for k in keys if k.endswith(("hits50_cpu", "mrr_cpu")))
+    assert np.all((np.asarray(keys[metric]) >= 0) & (np.asarray(keys[metric]) <= 1))

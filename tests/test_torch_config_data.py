@@ -27,7 +27,7 @@ from ocn_tpu_torch.train import metrics as tmet
 from ocn_tpu_torch.train.loop import Trainer
 from ocn_tpu_torch.utils import native as tnative
 from torch_parity import ensure_native_route
-from torch_parity import native_route  # noqa: F401 (autouse: native host code on both sides)
+from torch_parity import native_route, one_thread  # noqa: F401 (autouse: native host code on both sides, one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

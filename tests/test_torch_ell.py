@@ -21,7 +21,7 @@ from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse import ell as ELL
 from ocn_tpu_torch.sparse.csr import graph_from_numpy as tgraph
 from ocn_tpu_torch.train.loop import Trainer
-from torch_parity import native_route  # noqa: F401 (autouse: native host code on both sides)
+from torch_parity import native_route, one_thread  # noqa: F401 (autouse: native host code on both sides, one intra-op thread)
 
 
 @pytest.fixture(scope="module")

@@ -13,7 +13,7 @@ from ocn_tpu_torch.data.loaders import synthetic_dataset
 from ocn_tpu_torch.ops import frame as tf
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse.csr import graph_from_numpy as tgraph
-from torch_parity import native_route  # noqa: F401 (autouse: native host code on both sides)
+from torch_parity import native_route, one_thread  # noqa: F401 (autouse: native host code on both sides, one intra-op thread)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -14,7 +14,7 @@ from ocn_tpu_torch.config import require_supported
 from ocn_tpu_torch.data.loaders import synthetic_dataset as tsynthetic
 from ocn_tpu_torch.ops import frame as tf
 from torch_parity import trajectory
-from torch_parity import native_route  # noqa: F401 (autouse: native host code on both sides)
+from torch_parity import native_route, one_thread  # noqa: F401 (autouse: native host code on both sides, one intra-op thread)
 
 KW = dict(model="gcn", mplayers=2, hiddim=16, ln=True, res=True, jk=True,
           use_xlin=True, tailact=True, lnnn=True, gnndp=0.0, xdp=0.0, tdp=0.0,

@@ -34,7 +34,7 @@ from ocn_tpu_torch.train.loop import Trainer as TTrainer
 from torch_parity import FAMILY_KW as BASE
 from torch_parity import (
     HID, TOL, family_pair, family_sequence, family_setup, trajectory)
-from torch_parity import native_route  # noqa: F401 (autouse: native host code on both sides)
+from torch_parity import native_route, one_thread  # noqa: F401 (autouse: native host code on both sides, one intra-op thread)
 
 
 @pytest.fixture(scope="module")

@@ -15,7 +15,7 @@ from ocn_tpu.nn.predictors.cn_incomplete import IncompleteCNPredictor as JIncomp
 from ocn_tpu_torch.data.loaders import synthetic_dataset as tsynthetic
 from torch_parity import FAMILY_KW as BASE
 from torch_parity import TOL, family_pair, family_sequence, family_setup, trajectory
-from torch_parity import native_route  # noqa: F401 (autouse: native host code on both sides)
+from torch_parity import native_route, one_thread  # noqa: F401 (autouse: native host code on both sides, one intra-op thread)
 
 
 @pytest.fixture(scope="module")

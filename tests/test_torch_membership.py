@@ -12,6 +12,7 @@ from ocn_tpu.ops import frame as jframe
 from ocn_tpu.ops.pallas.membership import membership_counts as jax_membership
 from ocn_tpu_torch.ops import frame as tframe
 from ocn_tpu_torch.ops import membership as tm
+from torch_parity import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def _inputs(rng, lead, kq, ks, n, unit_w, sort=True):

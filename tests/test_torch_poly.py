@@ -22,7 +22,7 @@ from ocn_tpu_torch.nn.predictors import build_predictor as tbuild
 from ocn_tpu_torch.nn.predictors import cn_poly as tpoly
 from ocn_tpu_torch.weights import load_predictor
 from torch_parity import frame_steps, predictor_sequence, trajectory, without_window
-from torch_parity import native_route  # noqa: F401 (autouse: native host code on both sides)
+from torch_parity import native_route, one_thread  # noqa: F401 (autouse: native host code on both sides, one intra-op thread)
 
 
 @pytest.mark.parametrize("n", [7, 2708, 235868])

@@ -1,8 +1,9 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): the
 same inputs through a JAX predictor or trainer and its counterpart in
 ocn_tpu_torch, weights copied with weights.params_from_jax.  Not a test
-file: pytest collects nothing here, apart from the autouse fixture
-``native_route`` that each parity module imports."""
+file: pytest collects nothing here, apart from the autouse fixtures
+``native_route`` and ``one_thread`` that the port's test modules import.
+Importing it puts the native library in place (place_native_library)."""
 import copy
 import ctypes
 import os
@@ -25,6 +26,41 @@ from ocn_tpu_torch.utils import toolchain
 from ocn_tpu_torch.weights import load_predictor, params_from_jax
 
 TOL = dict(rtol=1e-4, atol=1e-6)
+
+NATIVE_DIR = os.path.join(toolchain.REPO_DIR, "native")
+
+
+def place_native_library(native_dir: str = NATIVE_DIR) -> str:
+    """Put a complete ``libgraphcore.so`` into ``native_dir`` when it has
+    none: the port's build of the same source and flags (toolchain.py),
+    copied to a per-process temporary name and renamed into place, so that
+    the JAX loader finds a whole file and never runs ``make`` in place,
+    where another process could load it half written.  One process builds
+    at a time (a lock beside the port's build); returns the path."""
+    import fcntl
+    import shutil
+
+    dst = os.path.join(native_dir, "libgraphcore.so")
+    if os.path.exists(dst):
+        return dst
+    os.makedirs(toolchain.BUILD_DIR, exist_ok=True)
+    with open(os.path.join(toolchain.BUILD_DIR, "graphcore.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        built = toolchain.build_graphcore()
+    tmp = f"{dst}.{os.getpid()}.tmp"
+    try:
+        shutil.copyfile(built, tmp)
+        os.replace(tmp, dst)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return dst
+
+
+# at import: pytest-xdist's collection imports this module in every worker
+# before any test runs, so no JAX test can reach the JAX loader's `make`
+if not os.environ.get("OCN_TPU_NO_NATIVE"):
+    place_native_library()
 
 
 def ensure_native_route():
@@ -53,6 +89,21 @@ def ensure_native_route():
         jnative._TRIED = True
     assert jnative.load() is not None, "the JAX package is on its NumPy fallbacks"
     assert tnative.loaded(), "the port is on its NumPy fallbacks"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Autouse in every port test module that imports it: one intra-op
+    thread for torch's CPU kernels while the module runs.  The suite runs
+    as several pytest-xdist workers on a few cores; with torch's default of
+    one OpenMP thread a core in each of them, every parallel region waits
+    on threads that other workers hold: the port's tests took 1,753 s that
+    way and 150 s with one thread each, on six workers sharing eight CPU
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True, scope="module")
