@@ -68,6 +68,28 @@ and the script exits nonzero:
              twice, timed and under torch.profiler: the card's busy share
              of the step and its ten kernels with the most device time
              (``step_profile``).
+6b. mesh_slice - bench_slice's program (BENCH_PATH, the same batches) at
+             dp_devices 2 x tp_devices 2: four ranks (parallel/launch.py)
+             sharing the card over gloo (NCCL takes one rank a card; the
+             rule is fixed before launch and printed), each scoring its dp
+             share of every chunk with its tp share of h.  A timed ELL
+             refresh, three steps and one evaluate on each rank; the losses
+             held against bench_slice's (step 1 rtol 1e-4, all 1e-3); per
+             rank the step ms, peak GB, membership launches and the
+             collectives' calls and bytes by op.
+6c. node_sharded_slice - the same program with graph_sharding "node" on
+             two ranks, the eval splits cut to EVAL_CUT rows: graph shards,
+             ELL shards, the dual-K split with the round-robin interleave,
+             sharded eval.  Each rank's graph bytes on the card against the
+             single-device path's, the halo rows an encoder layer ships,
+             step ms, peak GB, membership launches, and each rank's first
+             small-body chunk re-scored with the kernel and with its plain
+             version (1e-5).  Each launch first runs its reference case on
+             every rank, on the CPU and on the card from the same weights
+             (the mesh step at dp 2 x tp 2 on the plain case, the
+             node-sharded step at dp 2 on the tables with the dual-K split),
+             held at rtol 1e-4: the reference_ranks line.  A rank that fails
+             fails the launch; a collective waits at most RANK_TIMEOUT_S.
 7. ocnp_slice - the reference README's collab OCNP command,
              presets("collab", "cn7"): 1-layer gin with res at hidden 256,
              testbs 131072, the valid edges as input for the test split,
@@ -1092,7 +1114,282 @@ def phase_bench_slice(ds, **overrides):
           "peak_mem_gb": max(train["peak_mem_train_gb"], evals["peak_mem_eval_gb"]),
           "step_profile": step_profile})
     return (sum(train["membership_launches_per_step"])
-            + evals["membership_launches_eval"]), shapes
+            + evals["membership_launches_eval"]), shapes, train["losses"]
+
+
+# the multi-device phases: bench.py's program on dp x tp ranks that share the
+# card (gloo: NCCL takes one rank a card), each rank a process of its own
+MESH_PATH = dict(dp_devices=2, tp_devices=2)
+NODE_PATH = dict(dp_devices=2, graph_sharding="node")
+RANK_PATHS = {"mesh_slice": MESH_PATH, "node_sharded_slice": NODE_PATH}
+# a collective's wait, and a launch's whole run, in seconds
+RANK_TIMEOUT_S = 300
+RANK_DEADLINE_S = 600
+
+
+def rank_reference_cases():
+    """The multi-device reference cases, {name: (config, epochs)}: the mesh
+    step at dp 2 x tp 2 on the plain reference case, and the node-sharded
+    step at dp 2 on the tables with the dual-K split (the window case with
+    the window table off, which node sharding refuses)."""
+    cases = reference_cases()
+    plain, window = cases["plain"][0], cases["window"][0]
+    return {"mesh": (dataclasses.replace(plain, **MESH_PATH), 1),
+            "node_sharded": (dataclasses.replace(window, window_table=False,
+                                                 **NODE_PATH), 1)}
+
+
+def _count_plain_membership():
+    """On the CPU (the rehearsal) the membership wrapper runs its plain
+    version and counts nothing: count those calls instead, so that the
+    phases' launch checks run as on the card."""
+    import ocn_tpu_torch.ops.frame as frame
+    from ocn_tpu_torch.ops import membership as M
+
+    plain = M.membership_counts
+
+    def counted(q, ids, w):
+        counted.launches += 1
+        return plain(q, ids, w)
+
+    counted.launches = 0
+    M.membership_counts = frame.membership_counts = counted
+    return counted
+
+
+def rank_reference(name, ds, devices):
+    """One multi-device reference case on this rank, on each device of
+    ``devices`` (the CPU first) from the same initial weights: losses and
+    Hits@50."""
+    from ocn_tpu_torch.train.loop import Trainer
+
+    cfg, epochs = rank_reference_cases()[name]
+    out = {}
+    for dev in devices:
+        tr = Trainer(cfg, ds, device=dev)
+        if name == "node_sharded" and not (tr._use_ell and tr._split):
+            raise AssertionError(f"{name} reference: tables or split off")
+        state = tr.init_state(0)
+        rng = np.random.default_rng(0)
+        losses = [tr.train_epoch(state, rng, ep)[1] for ep in range(1, epochs + 1)]
+        out[dev] = {"losses": losses, "hits50": tr.evaluate(state)["Hits@50"]}
+    return out
+
+
+def replicated_graph_bytes(tr) -> int:
+    """Bytes the single-device trainer keeps on the card for the same
+    graph: the full-layout adjacency, A^2 gather-only, the ELL tables, x."""
+    g = tr.ds.as_graph()
+    ts = [t for t in (g.indptr, g.col, g.row, g.val, g.deg, g.tpos, g.packed)
+          if t is not None]
+    a2 = tr.adj2
+    ts += [a2.indptr, a2.deg] + ([a2.packed] if a2.packed is not None
+                                 else [a2.col, a2.val])
+    ell = 4 * tr.g.n_nodes * (tr.cfg.pad_deg + tr.cfg.pad_deg2) if tr._use_ell else 0
+    return (sum(t.numel() * t.element_size() for t in ts) + ell
+            + tr.x.numel() * tr.x.element_size())
+
+
+def sharded_rescore(tr, state, pos, neg, idx, m):
+    """This rank's first small-body chunk of a prepared batch, eval mode,
+    scored twice against the sharded tables, with membership on the kernel
+    and routed to its plain version, under deterministic algorithms, held
+    together at rtol/atol 1e-5; every rank takes part (the owner-gathers
+    are collective).  Returns the max abs difference."""
+    import ocn_tpu_torch.ops.frame as frame
+    from ocn_tpu_torch.ops.membership import membership_counts_plain
+
+    pe, _, aux, _, _ = tr.prepare_batch(pos[:, idx], neg[:, idx], idx)
+    step = tr._sharded_train()
+    _, lw1, lw2, lw3 = step.graphs(step.route(aux))
+    c = tr._chunk()
+    start = tr.mesh.dp_rank * (pe.shape[1] // tr.mesh.dp)
+    edges = pe[:, start:start + c]
+    valid = torch.ones(c, dtype=tr.dtype, device=tr.device)
+    kernel = frame.membership_counts
+    with torch.no_grad(), deterministic():
+        h = tr.encode(state)
+
+        def scores():
+            state.predictor.eval()
+            return tr._score_chunk(state, h, lw1, edges, valid, None, False,
+                                   lw2, adj3=lw3, k=tr.cfg.k_small)
+
+        before = m.launches
+        kern = scores()
+        if m.launches != before + 2:
+            raise AssertionError("the re-scored chunk did not launch membership twice")
+        frame.membership_counts = membership_counts_plain
+        try:
+            plain = scores()
+        finally:
+            frame.membership_counts = kernel
+    torch.testing.assert_close(kern, plain, rtol=1e-5, atol=1e-5)
+    return (kern - plain).abs().max().item()
+
+
+def rank_phase(info, name, ds, ref_ds, overrides):
+    """One rank of mesh_slice or node_sharded_slice, after its reference
+    case on this rank (CPU, then card): bench.py's program at full width on
+    dp x tp ranks, a timed ELL refresh, three steps on bench_slice's batches
+    and one evaluate; membership launches, the collectives' calls and bytes,
+    peak memory; node_sharded_slice also the graph's bytes on the card, the
+    halo, and a kernel-against-plain re-score."""
+    from ocn_tpu_torch.ops import membership as M
+    from ocn_tpu_torch.train.loop import Trainer
+
+    cuda = info.device.type == "cuda"
+    if cuda:
+        # full float32 matrix products (no TF32), as in the parent process
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    m = M.membership_counts if cuda else _count_plain_membership()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gb(reset=False):
+        if not cuda:
+            return 0.0
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+        return gb
+
+    case = name.removesuffix("_slice")
+    out = {"rank": info.rank, "backend": info.backend, "device": str(info.device),
+           "reference": rank_reference(case, ref_ds,
+                                       ("cpu", "cuda") if cuda else ("cpu",))}
+    t0 = time.perf_counter()
+    cfg = slice_config(**{**BENCH_PATH, **RANK_PATHS[name], **overrides})
+    tr = Trainer(cfg, ds, device=info.device)
+    state = tr.init_state(0)
+    if not (tr._use_ell and tr._split):
+        raise AssertionError(f"{name}: tables {tr._use_ell}, split {tr._split}")
+    sync()
+    out["trainer_init_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tr._refresh_ell(np.random.default_rng(1))
+    sync()
+    out["ell_refresh_s"] = time.perf_counter() - t1
+    pos, neg, batches = step_batches(tr, ds)
+    gen = torch.Generator(device=info.device).manual_seed(0)
+    tr.mesh.comm.reset()
+    peak_gb(reset=True)
+    step_ms, losses, per_step = [], [], []
+    for idx in batches:
+        m.launches = 0
+        inputs = tr.prepare_batch(pos[:, idx], neg[:, idx], idx)
+        sync()
+        ts = time.perf_counter()
+        state, loss = tr.train_step(state, *inputs[:3], gen, *inputs[3:])
+        losses.append(loss.item())
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        per_step.append(m.launches)
+    out.update(step_ms=step_ms, losses=losses, membership_launches_per_step=per_step,
+               comm_train=tr.mesh.comm.record(), peak_mem_train_gb=peak_gb(reset=True),
+               split=list(tr._split))
+    tr.mesh.comm.reset()
+    m.launches = 0
+    te = time.perf_counter()
+    results = tr.evaluate(state)
+    sync()
+    out.update(eval_s=time.perf_counter() - te, hits=results,
+               membership_launches_eval=m.launches, comm_eval=tr.mesh.comm.record(),
+               peak_mem_eval_gb=peak_gb())
+    if name == "mesh_slice":
+        out["row_parallel"] = sorted(tr.row_parallel_names(state))
+    else:
+        sh = tr._sharded_train().sh
+        out.update(graph_bytes_device=sh.device_bytes(tr._ell),
+                   graph_bytes_replicated=replicated_graph_bytes(tr),
+                   halo_rows_per_layer=tr.mesh.dp * sh.bp.bmax,
+                   halo_fraction=sh.bp.halo_fraction, rows_per=sh.rows_per,
+                   rescore_max_abs_err=sharded_rescore(tr, state, pos, neg,
+                                                       batches[-1], m))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_rank_reference(case, ranks):
+    """The card's losses and Hits@50 against the CPU's (rtol 1e-4), every
+    rank alike; returns the reference_ranks keys of the case."""
+    ref = ranks[0]["reference"]
+    if any(r["reference"] != ref for r in ranks[1:]):
+        raise AssertionError(f"{case} reference: the ranks disagree")
+    if not np.isfinite(ref["cpu"]["losses"]).all():
+        raise AssertionError(f"{case} reference: non-finite losses {ref}")
+    if "cuda" in ref:
+        np.testing.assert_allclose(ref["cuda"]["losses"], ref["cpu"]["losses"],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(ref["cuda"]["hits50"], ref["cpu"]["hits50"],
+                                   rtol=1e-4)
+    out = {}
+    for dev, v in ref.items():
+        out[f"{case}_loss_{dev}"] = v["losses"]
+        out[f"{case}_hits50_{dev}"] = v["hits50"]
+    return out
+
+
+RANK_KEYS = ("step_ms", "peak_mem_train_gb", "peak_mem_eval_gb", "eval_s",
+             "membership_launches_per_step", "membership_launches_eval",
+             "comm_train", "comm_eval", "trainer_init_s", "ell_refresh_s",
+             "graph_bytes_device", "rescore_max_abs_err", "seconds")
+
+
+def phase_ranks(ds, bench_losses, ref_ds, **overrides):
+    """mesh_slice on four ranks, then node_sharded_slice on two (its eval
+    splits cut to EVAL_CUT rows); each launch also runs its reference case
+    on every rank, and one reference_ranks line follows both.  mesh_slice's
+    losses are held against bench_slice's (``bench_losses``, the same
+    program on one device): step 1 at rtol 1e-4, all at 1e-3 (Adam
+    amplifies the ranks' other order of sums).  A rank that fails fails the
+    launch.  Returns each phase's membership launches summed over ranks."""
+    from ocn_tpu_torch.parallel.launch import launch
+
+    ref_line = {"phase": "reference_ranks"}
+    launches = {}
+    n_train = len(ds.split_edge["train"]["edge"])
+    for name, nranks, data in (("mesh_slice", 4, ds),
+                               ("node_sharded_slice", 2,
+                                cut_splits(ds, n_train, EVAL_CUT))):
+        t0 = time.perf_counter()
+        ranks = launch(rank_phase, nranks, name, data, ref_ds, overrides,
+                       device=DEVICE, timeout_s=RANK_TIMEOUT_S,
+                       deadline_s=RANK_DEADLINE_S)
+        seconds = time.perf_counter() - t0
+        ref_line.update(check_rank_reference(name.removesuffix("_slice"), ranks))
+        r0 = ranks[0]
+        if not all(math.isfinite(x) for x in r0["losses"]):
+            raise AssertionError(f"{name}: non-finite losses {r0['losses']}")
+        for r in ranks[1:]:
+            np.testing.assert_allclose(r["losses"], r0["losses"], rtol=1e-6)
+        check_hits(r0["hits"])
+        if any(min(r["membership_launches_per_step"]) == 0
+               or r["membership_launches_eval"] == 0 for r in ranks):
+            raise AssertionError(f"{name}: a rank launched no membership kernel")
+        launches[name] = sum(sum(r["membership_launches_per_step"])
+                             + r["membership_launches_eval"] for r in ranks)
+        line = {"phase": name, "seconds": seconds, "ranks": nranks,
+                "backend": r0["backend"], "devices": [r["device"] for r in ranks],
+                "split": r0["split"], "losses": r0["losses"], "hits": r0["hits"],
+                "membership_launches": launches[name],
+                "per_rank": [{k: r[k] for k in RANK_KEYS if k in r} for r in ranks]}
+        if name == "mesh_slice":
+            line["row_parallel"] = r0["row_parallel"]
+            if bench_losses is not None:
+                np.testing.assert_allclose(r0["losses"][:1], bench_losses[:1],
+                                           rtol=1e-4)
+                np.testing.assert_allclose(r0["losses"], bench_losses, rtol=1e-3)
+                line["bench_slice_losses"] = bench_losses
+        else:
+            line.update({k: r0[k] for k in ("graph_bytes_replicated",
+                                            "halo_rows_per_layer",
+                                            "halo_fraction", "rows_per")})
+        emit(line)
+    emit(ref_line)
+    return launches
 
 
 def profile_step(tr, state, pos, neg, idx, gen):
@@ -2019,10 +2316,13 @@ def run_phases(jobs) -> int:
     torch.cuda.empty_cache()
     w_train, w_eval = phase_window_slice(ds)
     torch.cuda.empty_cache()
-    b_launches, shapes = phase_bench_slice(ds)
+    b_launches, shapes, bench_losses = phase_bench_slice(ds)
+    torch.cuda.empty_cache()
+    # the multi-device tier: ranks sharing the card, with their reference
+    # cases on phase 3's Cora graph
+    new = phase_ranks(ds, bench_losses, reference_dataset("Cora"))
     torch.cuda.empty_cache()
     # the new paths, each read with the counts set to 0 just before it
-    new = {}
     for name, phase in (("ocnp_slice", phase_ocnp_slice),
                         ("cn6_slice", phase_cn6_slice),
                         ("hoist_slice", phase_hoist_slice)):

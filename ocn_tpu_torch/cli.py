@@ -13,15 +13,19 @@ other dataset by Hits@K.  Per-epoch results go to a MetricLogger in
 the whole train state at each new best validation, ``--loadmod`` resumes
 from the latest one; ``--save_gemb`` and ``--savex`` write the best state's
 hidden states and Embedding table under ``gemb/``; ``--profile_dir`` traces
-epoch 1 of run 0 with torch.profiler into a Chrome trace there.  Meshes and
-node sharding raise NotImplementedError naming the field
-(Config.require_supported).
+epoch 1 of run 0 with torch.profiler into a Chrome trace there.
+
+``--dp_devices``/``--tp_devices`` above 1 run the program on dp x tp ranks
+(parallel/launch.py: one process each, on the card or, with ``--platform
+cpu``, on the CPU over gloo); ``--graph_sharding node`` shards the graph
+over the dp ranks.  Rank 0 alone prints, logs and writes files.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import time
 
@@ -97,20 +101,49 @@ def run_dataset(cfg: Config, run_i: int = 0):
     return ds.reorder_bfs() if cfg.reorder == "bfs" else ds
 
 
+class _Silent:
+    """The MetricLogger of the ranks other than 0: they log nothing."""
+
+    def text(self, *args):
+        pass
+
+    def scalars(self, *args):
+        pass
+
+    def close(self):
+        pass
+
+
+def _rank_run(info, cfg: Config) -> dict:
+    return run(cfg, device=str(info.device))
+
+
 def run(cfg: Config, device: str = "cuda") -> dict:
     """Multi-run training with best-by-validation tracking (reference
-    main()).  ``cfg.platform == "cpu"`` also selects the CPU."""
+    main()).  ``cfg.platform == "cpu"`` also selects the CPU.  With
+    dp_devices * tp_devices > 1 it launches that many ranks, each running
+    this function, and returns rank 0's summary."""
+    import torch.distributed as dist
+
+    from ocn_tpu_torch.parallel.launch import launch
+
     if cfg.platform == "cpu":
         device = "cpu"
-    logger = MetricLogger(f"rec/{cfg.model}_{cfg.predictor}")
+    nranks = cfg.dp_devices * cfg.tp_devices
+    if nranks > 1 and not dist.is_initialized():
+        return launch(_rank_run, nranks, cfg, device=device)[0]
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    logger = MetricLogger(f"rec/{cfg.model}_{cfg.predictor}") if lead else _Silent()
     try:
         logger.text("hyperparams", json.dumps(dataclasses.asdict(cfg)))
-        return _run(cfg, device, logger)
+        with (contextlib.nullcontext() if lead
+              else contextlib.redirect_stdout(io.StringIO())):
+            return _run(cfg, device, logger, lead)
     finally:
         logger.close()
 
 
-def _run(cfg: Config, device: str, logger: MetricLogger) -> dict:
+def _run(cfg: Config, device: str, logger: MetricLogger, lead: bool = True) -> dict:
     planetoid = cfg.dataset in ("Cora", "Citeseer", "Pubmed")
     headline = HEADLINE.get(cfg.dataset, "Hits@100")
     mrr_mode = cfg.dataset == "citation2"
@@ -131,7 +164,7 @@ def _run(cfg: Config, device: str, logger: MetricLogger) -> dict:
         best = None
         for epoch in range(1, cfg.epochs + 1):
             t1 = time.time()
-            profiling = cfg.profile_dir and epoch == 1 and run_i == 0
+            profiling = cfg.profile_dir and epoch == 1 and run_i == 0 and lead
             with (chrome_trace(cfg.profile_dir, tr.device.type == "cuda")
                   if profiling else contextlib.nullcontext()):
                 state, loss = tr.train_epoch(state, rng, epoch)
@@ -153,13 +186,15 @@ def _run(cfg: Config, device: str, logger: MetricLogger) -> dict:
                     best[key] = [trn, val, tst]
                     # best-by-validation saves (reference
                     # NeighborOverlap_large.py:334-340)
-                    if cfg.savemod and cfg.checkpoint_dir:
+                    if cfg.savemod and cfg.checkpoint_dir and lead:
                         from ocn_tpu_torch.train.checkpoint import save_state
                         save_state(cfg.checkpoint_dir, state, epoch)
                     if cfg.save_gemb:
                         from ocn_tpu_torch.train.checkpoint import save_embeddings
-                        save_embeddings(f"{gemb}.npy", tr.encode(state))
-                    if cfg.savex and state.encoder.emb is not None:
+                        h = tr.encode(state)  # every rank: sharded, collective
+                        if lead:
+                            save_embeddings(f"{gemb}.npy", h)
+                    if cfg.savex and state.encoder.emb is not None and lead:
                         from ocn_tpu_torch.train.checkpoint import save_embeddings
                         save_embeddings(f"{gemb}_{run_i}.npy",
                                         state.encoder.emb.weight)

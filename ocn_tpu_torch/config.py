@@ -454,22 +454,36 @@ def presets(dataset: str, predictor: str = "cn5", tpu_overlay: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# What the PyTorch port implements so far.  Every other value of these fields
-# raises instead of being silently ignored (ROADMAP.md queues the rest).
+# What the port refuses: what the JAX package refuses (its asserts), and
+# unknown values.
 # ---------------------------------------------------------------------------
 
 def require_supported(cfg: Config) -> None:
-    """Raise NotImplementedError naming the first field whose value this
-    slice of the port does not implement."""
-    unsupported = (
-        ("dp_devices", cfg.dp_devices * cfg.tp_devices > 1, "multi-device meshes"),
-        ("graph_sharding", cfg.graph_sharding == "node", "node-sharded graphs"),
-    )
-    for field, bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"Config.{field}={getattr(cfg, field)!r} asks for {what}, "
-                "which ocn_tpu_torch does not implement yet (ROADMAP.md)")
+    """Raise ValueError naming the first field whose value the JAX package
+    refuses too: the node-sharded step (dp_devices * tp_devices > 1 with
+    graph_sharding="node") takes tp_devices 1, the frame-based predictors,
+    two_hop_mode="gather", and neither the window table nor hoisted frames
+    (ocn_tpu/train/loop.py:895, parallel/sharded_graph.py:510-520); and
+    unknown values of the enumerated fields."""
+    if cfg.graph_sharding not in ("replicated", "node"):
+        raise ValueError(f"Config.graph_sharding={cfg.graph_sharding!r}")
+    if cfg.graph_sharding == "node" and cfg.dp_devices * cfg.tp_devices > 1:
+        from ocn_tpu_torch.nn.predictors import FRAME_BASED
+
+        refused = (
+            ("tp_devices", cfg.tp_devices != 1, "uses dp only"),
+            ("predictor", cfg.predictor not in FRAME_BASED,
+             "covers the frame-based predictors (cn1, cn5-cn9)"),
+            ("two_hop_mode", cfg.two_hop_mode != "gather",
+             "needs the precomputed A^2 (two_hop_mode='gather')"),
+            ("window_table", cfg.window_table, "takes no window table"),
+            ("hoist_frames", cfg.hoist_frames, "takes no hoisted frames"),
+        )
+        for field, bad, why in refused:
+            if bad:
+                raise ValueError(
+                    f"Config.{field}={getattr(cfg, field)!r}: graph_sharding="
+                    f"'node' {why}, as in the JAX package")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"Config.dtype={cfg.dtype!r}")
     if cfg.two_hop_mode not in ("gather", "sddmm"):

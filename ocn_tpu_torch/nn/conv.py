@@ -45,11 +45,15 @@ class PureConvV2(PureConv):
     SpMM over the edge weights val * norm[row] * norm[col], no self term.
     The weighted graph keeps the transpose permutation, so its backward is
     the transpose-permutation one: the weights are symmetric wherever the
-    values are."""
+    values are.  A node-sharded graph brings its own (``gcn_enorm_conv``:
+    the remote norms arrive with the halo)."""
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
         if self.aggr != "gcn":
             return spmm(g, x, self.aggr)
+        own = getattr(g, "gcn_enorm_conv", None)
+        if own is not None:
+            return own(x)
         norm = torch.rsqrt(1.0 + g.value_rowsum()).to(x.dtype)
         gw = g.with_values(g.val * norm[g.row] * norm[g.col])
         return spmm(gw, x, "sum")

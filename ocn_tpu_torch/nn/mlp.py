@@ -16,13 +16,16 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ocn_tpu_torch.parallel import shard
+
 
 def dropout(x: torch.Tensor, p: float, training: bool,
             gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout drawing its mask from ``gen``."""
+    """Inverted dropout drawing its mask from ``gen`` (in the mesh step, the
+    single-device step's mask, parallel/shard.py)."""
     if not training or p <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    keep = shard.rand(x.shape, gen, x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
@@ -40,7 +43,8 @@ class Dense(nn.Linear):
     nn.Dense (dtype=None) promotes its input and its float32 kernel to a
     common type, so a bfloat16 input (the node features under
     Config.dtype="bfloat16") is computed on in float32 and everything after
-    the first Dense is float32."""
+    the first Dense is float32.  Given its tp column share of the input in
+    the mesh step, it computes row-parallel (parallel/shard.py)."""
 
     def reset_parameters(self, gen: Optional[torch.Generator] = None) -> None:
         lecun_normal_(self.weight, self.in_features, gen)
@@ -48,7 +52,9 @@ class Dense(nn.Linear):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
+        out = shard.row_parallel(self.weight, self.bias, x)
+        return super().forward(x) if out is None else out
 
 
 def layer_norm(n: int) -> nn.LayerNorm:

@@ -54,6 +54,7 @@ from ocn_tpu_torch.ops.frame import (
     gather_neighbors, matmul_shared)
 from ocn_tpu_torch.ops.ortho import colnorm_plain, colnorm_quirk
 from ocn_tpu_torch.ops.sample import sample_frame, sample_frames
+from ocn_tpu_torch.parallel import shard
 from ocn_tpu_torch.sparse.csr import Graph
 
 # a block of B*R candidate edges at frame width K goes blocked on a graph
@@ -133,7 +134,12 @@ class IncompleteCNPredictor(_FramePredictor):
         return g.drop_edges(self.edrop, gen), None
 
     def _x_aug(self, x, training, gen):
-        return x + self.xlin(x, gen, training) if self.use_xlin else x
+        """x + xlin(x) over all nodes; in the mesh step x is this rank's tp
+        column share and keeps it (parallel/shard.py)."""
+        if not self.use_xlin:
+            return x
+        with shard.all_nodes():
+            return x + shard.tp_columns(self.xlin(x, gen, training))
 
     def _ema_read(self) -> torch.Tensor:
         # a copy: later in-place steps of the buffer must not reach tensors
@@ -210,7 +216,7 @@ class IncompleteCNPredictor(_FramePredictor):
             if training:
                 inner = (1.0 - 1.0 / (self.n + 1).float()) * inner
                 self._ema_step(inner)
-            scale = torch.max(torch.abs(ncn1.val))
+            scale = shard.dp_max(torch.abs(ncn1.val))
             # inner / scale where scale > 0, else inner; the divisor is
             # replaced, not the quotient: with the learnable pt the values
             # carry a gradient, and a chunk whose probabilities all
@@ -247,8 +253,7 @@ class IncompleteCNPredictor(_FramePredictor):
         src = gather_neighbors(g, anchors, k_frame, sample)
         srcw = src.w[:, None, :].expand(b, r, k_frame)
         if drop is not None:
-            keep = torch.rand((b, r, k_frame), generator=gen,
-                              device=srcw.device) < 1.0 - self.edrop
+            keep = shard.rand((b, r, k_frame), gen, srcw.device) < 1.0 - self.edrop
             srcw = torch.where(keep, srcw * (1.0 / (1.0 - self.edrop)), 0.0)
         dstf = gather_neighbors(g, cand.reshape(-1), k_frame, sample, drop=drop)
         in_dst = _rowwise_membership(src.ids[:, None, :],
@@ -278,8 +283,8 @@ class IncompleteCNPredictor(_FramePredictor):
         def colsum(val_brk):
             # colsum is linear, and the R copies of an anchor share its ids
             pre = val_brk.sum(dim=1).reshape(-1)
-            return torch.zeros(n + 1, dtype=pre.dtype,
-                               device=pre.device).index_add_(0, ids_flat, pre)
+            return shard.dp_sum(torch.zeros(
+                n + 1, dtype=pre.dtype, device=pre.device).index_add_(0, ids_flat, pre))
 
         s1 = colsum(cn_val)
         s_rep = torch.where(s1 == 0, 1.0, s1)
@@ -288,9 +293,10 @@ class IncompleteCNPredictor(_FramePredictor):
         ema_v = self._ema_read()
         if training:
             bet = 1.0 / (self.n + 1).float()
-            ema_v = (1.0 - bet) * ema_v + bet * torch.sum(cn22_val * ncn1_val)
+            ema_v = (1.0 - bet) * ema_v + bet * shard.dp_sum(
+                torch.sum(cn22_val * ncn1_val))
             self._ema_step(ema_v)
-        scale = torch.max(torch.abs(ncn1_val))
+        scale = shard.dp_max(torch.abs(ncn1_val))
         nip = torch.where(scale > 0, ema_v / scale, ema_v)
         mask_u = (cn22_val != 0) | (ncn1_val != 0)
         val_o = torch.where(mask_u, cn22_val - nip * ncn1_val, 0.0)
@@ -342,7 +348,7 @@ class IncompleteCNPredictor(_FramePredictor):
             bet = 1.0 / (self.n + 1).float()
             inner = (1.0 - bet) * inner + bet * cn22.inner(ncn1)
             self._ema_step(inner)
-        scale = torch.max(torch.abs(ncn1.val))
+        scale = shard.dp_max(torch.abs(ncn1.val))
         nip = torch.where(scale > 0, inner / scale, inner)
         ncn22 = colnorm_plain(cn22.with_values(torch.where(
             cn22.mask | ncn1.mask, cn22.val - nip * ncn1.val, 0.0)), fidx)

@@ -30,6 +30,7 @@ import torch
 
 from ocn_tpu_torch.ops import window_gather as W
 from ocn_tpu_torch.ops.membership import membership_counts
+from ocn_tpu_torch.parallel import shard
 from ocn_tpu_torch.sparse.csr import Graph
 
 
@@ -80,12 +81,17 @@ def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
     ``drop=(gen, p)``: lane-mask DropAdj.  Each gathered lane is kept with
     probability 1-p (one (B, k) uniform draw of that generator, after the
     window offsets) and kept weights are scaled by 1/(1-p); the graph's
-    values stay as they are, so its packed and ELL layouts stay attached."""
+    values stay as they are, so its packed and ELL layouts stay attached.
+
+    A graph that carries its own ``sharded_gather`` (a node-sharded window
+    table, parallel/sharded_graph.py LocalWindows) answers through it."""
+    own = getattr(g, "sharded_gather", None)
+    if own is not None:
+        return own(nodes, k, gen)
     if drop is not None:
         frame = gather_neighbors(g, nodes, k, gen, sampling=sampling)
         dgen, p = drop
-        keep = torch.rand(frame.w.shape, generator=dgen,
-                          device=frame.w.device) < 1.0 - p
+        keep = shard.rand(frame.w.shape, dgen, frame.w.device) < 1.0 - p
         return dataclasses.replace(
             frame, w=torch.where(keep, frame.w * (1.0 / (1.0 - p)), 0.0))
     nodes = nodes.long()
@@ -109,7 +115,7 @@ def gather_neighbors(g: Graph, nodes: torch.Tensor, k: int,
     if sampling == "iid" and gen is not None:
         return _gather_iid(g, nodes, k, gen, deg, start, capped, w_row, valid)
     if gen is not None:
-        u = torch.rand(b, generator=gen, device=nodes.device)
+        u = shard.rand((b,), gen, nodes.device)
         woff = torch.where(capped, (u * (deg - k + 1).float()).int(), 0)
     else:
         woff = torch.zeros_like(deg)
@@ -140,7 +146,7 @@ def _gather_iid(g: Graph, nodes, k, gen, deg, start, capped, w_row, valid
     by id."""
     lane = torch.arange(k, dtype=torch.int32, device=nodes.device)[None, :]
     exact_off = torch.minimum(lane, torch.clamp(deg, min=1)[:, None] - 1)
-    u = torch.rand((nodes.shape[0], k), generator=gen, device=nodes.device)
+    u = shard.rand((nodes.shape[0], k), gen, nodes.device)
     samp_off = torch.minimum((u * deg[:, None].float()).int(), deg[:, None] - 1)
     off = torch.where(capped[:, None], samp_off, exact_off)
     pos = torch.clamp(start[:, None] + off, max=g.nnz - 1)
@@ -199,10 +205,11 @@ class CNFrame:
         return dataclasses.replace(self, val=val)
 
     def col_sum(self) -> torch.Tensor:
-        """Per-node column sums over the batch, (n_nodes,)."""
+        """Per-node column sums over the batch (the whole chunk in the mesh
+        step), (n_nodes,)."""
         s = torch.zeros(self.n_nodes + 1, dtype=self.val.dtype, device=self.val.device)
         s = s.index_add(0, self.ids.reshape(-1), self.val.reshape(-1))
-        return s[: self.n_nodes]
+        return shard.dp_sum(s)[: self.n_nodes]
 
     def scale_cols(self, colscale: torch.Tensor) -> "CNFrame":
         """Multiply each entry by a per-node factor (sentinel lanes have
@@ -211,8 +218,9 @@ class CNFrame:
         return self.with_values(self.val * safe)
 
     def inner(self, other: "CNFrame") -> torch.Tensor:
-        """Sum of elementwise products over the shared pattern."""
-        return torch.sum(self.val * other.val)
+        """Sum of elementwise products over the shared pattern (the whole
+        chunk in the mesh step)."""
+        return shard.dp_sum(torch.sum(self.val * other.val))
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """cn @ x for this frame alone; its ids need not be sorted (the
@@ -230,12 +238,15 @@ class FrameIndex:
     seg      : (M,) sorted ids clamped to n_nodes-1 (frame-matmul dx rows)
     rank_inv : (M,) compact column index per entry (rank at the entry's
                sorted position)
+    ids      : (M,) the flat ids (sentinel n_nodes kept)
     """
 
     perm: torch.Tensor
     rank: torch.Tensor
     seg: torch.Tensor
     rank_inv: torch.Tensor
+    ids: torch.Tensor
+    n_nodes: int
 
 
 def frame_index(ids: torch.Tensor, n_nodes: int) -> FrameIndex:
@@ -248,7 +259,7 @@ def frame_index(ids: torch.Tensor, n_nodes: int) -> FrameIndex:
     rank = torch.cumsum(is_start, 0) - 1
     seg = torch.clamp(sorted_ids, max=n_nodes - 1).long()
     rank_inv = torch.empty_like(rank).index_copy_(0, perm, rank)
-    return FrameIndex(perm, rank, seg, rank_inv)
+    return FrameIndex(perm, rank, seg, rank_inv, flat, n_nodes)
 
 
 def _col_sum_map(vals: torch.Tensor, perm, rank, out_idx) -> torch.Tensor:
@@ -282,9 +293,14 @@ def entry_col_sum_multi(vals: torch.Tensor, perm, rank, out_idx) -> torch.Tensor
     return _EntryColSumMulti.apply(vals, perm, rank, out_idx)
 
 
-def entry_col_sum(val: torch.Tensor, perm, rank, out_idx) -> torch.Tensor:
-    """entry_col_sum_multi for one (B, K) plane."""
-    return entry_col_sum_multi(val[None], perm, rank, out_idx)[0]
+def entry_col_sums(vals: torch.Tensor, fidx: FrameIndex) -> torch.Tensor:
+    """entry_col_sum_multi over the FrameIndex of the planes' ids; in the
+    mesh step the sums run over the whole chunk, every rank's rows
+    (parallel/shard.py dp_col_sums)."""
+    out = shard.dp_col_sums(vals, fidx.ids, fidx.n_nodes)
+    if out is not None:
+        return out
+    return entry_col_sum_multi(vals, fidx.perm, fidx.rank, fidx.rank_inv)
 
 
 def _segment_dx(vals, dout, perm, seg, n_nodes: int) -> torch.Tensor:
@@ -388,7 +404,9 @@ def matmul_shared(frames: List[CNFrame], x: torch.Tensor,
     per step and pos the frames' CSR window positions (needs ``fidx``; see
     _FrameMatmulMultiWindow)."""
     ids = frames[0].ids
-    vals = torch.stack([f.val for f in frames])
+    # in the mesh step x may be a tp column share of h: the values' cotangent
+    # then sums over the tp ranks (parallel/shard.py)
+    vals = shard.tp_contracted(torch.stack([f.val for f in frames]), x.shape[-1])
     if y is not None and pos is not None and fidx is not None:
         out = _FrameMatmulMultiWindow.apply(x, y, pos, vals, fidx.perm,
                                             fidx.seg, frames[0].n_nodes)

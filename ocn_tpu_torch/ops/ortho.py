@@ -11,6 +11,10 @@ The quirks of the reference math are kept on purpose:
 * the inner product is divided by max|ncn1| over the batch before the
   projection (the raw value when that max is 0);
 * the projected cn2 is re-normalized with the plain rule (zero sums -> 1).
+
+Every column sum, inner product and maximum spans the chunk; in the mesh
+step, whose ranks each hold rows of the chunk, they are reduced over "dp"
+(parallel/shard.py).
 """
 from __future__ import annotations
 
@@ -18,8 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ocn_tpu_torch.ops.frame import (
-    CNFrame, FrameIndex, entry_col_sum, entry_col_sum_multi)
+from ocn_tpu_torch.ops.frame import CNFrame, FrameIndex, entry_col_sums
+from ocn_tpu_torch.parallel import shard
 
 
 def colnorm_quirk(cn: CNFrame, empty_fill: float = 0.0,
@@ -27,7 +31,7 @@ def colnorm_quirk(cn: CNFrame, empty_fill: float = 0.0,
     """Column-normalize with the reference's cn1 rule; with ``fidx`` the
     column sums are taken per entry in the chunk's sorted domain."""
     if fidx is not None:
-        s = entry_col_sum(cn.val, fidx.perm, fidx.rank, fidx.rank_inv)
+        s = entry_col_sums(cn.val[None], fidx)[0]
         s_rep = torch.where(s == 0, 1.0, s)
         inv = torch.where(s_rep != 1, 1.0 / s_rep, empty_fill)
         return cn.with_values(cn.val * inv)
@@ -40,7 +44,7 @@ def colnorm_quirk(cn: CNFrame, empty_fill: float = 0.0,
 def colnorm_plain(cn: CNFrame, fidx: Optional[FrameIndex] = None) -> CNFrame:
     """Column-normalize with the post-projection rule."""
     if fidx is not None:
-        s = entry_col_sum(cn.val, fidx.perm, fidx.rank, fidx.rank_inv)
+        s = entry_col_sums(cn.val[None], fidx)[0]
         return cn.with_values(cn.val * (1.0 / torch.where(s == 0, 1.0, s)))
     s = cn.col_sum()
     return cn.scale_cols(1.0 / torch.where(s == 0, 1.0, s))
@@ -62,7 +66,7 @@ def ema_inner_product(cn2: CNFrame, ncn1: CNFrame, ema: torch.Tensor,
 
 def gram_schmidt(cn2: CNFrame, ncn1: CNFrame, inner_product: torch.Tensor) -> CNFrame:
     """cn2 <- cn2 - (inner/scale) * ncn1 on the union pattern."""
-    scale = torch.max(torch.abs(ncn1.val))
+    scale = shard.dp_max(torch.abs(ncn1.val))
     nip = torch.where(scale > 0, inner_product / scale, inner_product)
     union = cn2.mask | ncn1.mask
     return cn2.with_values(torch.where(union, cn2.val - nip * ncn1.val, 0.0))
@@ -94,16 +98,15 @@ def orthogonalize(
         ocn2 = colnorm_plain(gram_schmidt(cn2, ncn1, inner))
         return ncn1, ocn2, new_ema, new_n
     u0 = (cn1.val != 0) | (cn2.val != 0)
-    es = entry_col_sum_multi(
+    es = entry_col_sums(
         torch.stack([cn1.val, torch.where(u0, cn2.val, 0.0),
-                     torch.where(u0, cn1.val, 0.0)]),
-        fidx.perm, fidx.rank, fidx.rank_inv)
+                     torch.where(u0, cn1.val, 0.0)]), fidx)
     es1, es2u, es1u = es[0], es[1], es[2]
     s_rep = torch.where(es1 == 0, 1.0, es1)
     inv1 = torch.where(s_rep != 1, 1.0 / s_rep, empty_fill)
     ncn1 = cn1.with_values(cn1.val * inv1)
     inner, new_ema, new_n = ema_inner_product(cn2, ncn1, ema, n, training)
-    scale = torch.max(torch.abs(ncn1.val))
+    scale = shard.dp_max(torch.abs(ncn1.val))
     nip = torch.where(scale > 0, inner / scale, inner)
     union = cn2.mask | ncn1.mask
     val_o = torch.where(union, cn2.val - nip * ncn1.val, 0.0)
@@ -142,7 +145,7 @@ def orthogonalize3(
     direct path's.  Without ``fidx`` the direct path (the oracle) runs."""
     if fidx is None:
         ncn1 = colnorm_quirk(cn1, empty_fill)
-        scale = torch.max(torch.abs(ncn1.val))
+        scale = shard.dp_max(torch.abs(ncn1.val))
         inner0, ema, n = ema_inner_product(cn2, ncn1, ema, n, training)
         nip0 = torch.where(scale > 0, inner0 / scale, inner0)
         ocn2 = colnorm_plain(cn2.with_values(torch.where(
@@ -156,17 +159,16 @@ def orthogonalize3(
         return ncn1, ocn2, ocn3, ema, n
     u2 = (cn1.val != 0) | (cn2.val != 0)
     u3 = u2 | (cn3.val != 0)
-    es = entry_col_sum_multi(
+    es = entry_col_sums(
         torch.stack([cn1.val, torch.where(u2, cn2.val, 0.0),
                      torch.where(u2, cn1.val, 0.0),
                      torch.where(u3, cn3.val, 0.0),
-                     torch.where(u3, cn1.val, 0.0)]),
-        fidx.perm, fidx.rank, fidx.rank_inv)
+                     torch.where(u3, cn1.val, 0.0)]), fidx)
     es1, es2u, es1u, es3u, es1u3 = es.unbind(0)
     s_rep = torch.where(es1 == 0, 1.0, es1)
     inv1 = torch.where(s_rep != 1, 1.0 / s_rep, empty_fill)
     ncn1 = cn1.with_values(cn1.val * inv1)
-    scale = torch.max(torch.abs(ncn1.val))
+    scale = shard.dp_max(torch.abs(ncn1.val))
     # cn2 off ncn1
     inner0, ema, n = ema_inner_product(cn2, ncn1, ema, n, training)
     nip0 = torch.where(scale > 0, inner0 / scale, inner0)

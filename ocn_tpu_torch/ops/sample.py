@@ -14,6 +14,7 @@ from typing import List, Optional
 import torch
 
 from ocn_tpu_torch.ops.frame import CNFrame
+from ocn_tpu_torch.parallel import shard
 
 
 def sample_frame(cn: CNFrame, r: int, gen: Optional[torch.Generator]) -> CNFrame:
@@ -35,7 +36,7 @@ def sample_frame(cn: CNFrame, r: int, gen: Optional[torch.Generator]) -> CNFrame
         stride = torch.clamp(t, min=1).float() / r
         m_samp = torch.minimum((m_keep.float() * stride).long(), t - 1)
     else:
-        u = torch.rand((b, r), generator=gen, device=dev)
+        u = shard.rand((b, r), gen, dev)
         m_samp = torch.minimum((u * t.float()).long(), t - 1)
     capped = t > r
     m = torch.where(capped, m_samp, m_keep)

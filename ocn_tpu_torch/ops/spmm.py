@@ -11,6 +11,11 @@ The sum SpMM over a symmetric pattern has a custom backward that re-indexes
 through the transpose permutation ``tpos``, so dx is another row-sorted
 segment sum of the same shape as the forward.  Past ``_SPMM_BLOCK_BYTES`` of
 (E, H) intermediate the edge dimension is processed in blocks.
+
+A node-sharded graph (parallel/sharded_graph.py LocalGraph) carries its own
+halo-exchange ``sharded_spmm`` and convs; ``spmm``, ``gcn_norm_conv`` and
+``gcn_selfloop_conv`` dispatch to them, so the encoder runs unchanged on a
+shard.
 """
 from __future__ import annotations
 
@@ -83,6 +88,9 @@ def _spmm_sum(g: Graph, x: torch.Tensor) -> torch.Tensor:
 
 def spmm(g: Graph, x: torch.Tensor, aggr: str = "sum") -> torch.Tensor:
     """aggr over in-neighbors: out[u] = aggr_{(u,v) in E} val * x[v]."""
+    own = getattr(g, "sharded_spmm", None)
+    if own is not None:
+        return own(x, aggr)
     if aggr == "sum":
         return _spmm_sum(g, x)
     if aggr == "mean":
@@ -105,6 +113,9 @@ def spmm(g: Graph, x: torch.Tensor, aggr: str = "sum") -> torch.Tensor:
 def gcn_norm_conv(g: Graph, x: torch.Tensor) -> torch.Tensor:
     """PureConv 'gcn' aggregation: norm = rsqrt(1 + rowsum(A));
     out = norm * (A @ (norm * x) + norm * x)."""
+    own = getattr(g, "gcn_norm_conv", None)
+    if own is not None:
+        return own(x)
     norm = torch.rsqrt(1.0 + g.value_rowsum()).to(x.dtype)[:, None]
     xn = norm * x
     return norm * (spmm(g, xn, "sum") + xn)
@@ -113,6 +124,9 @@ def gcn_norm_conv(g: Graph, x: torch.Tensor) -> torch.Tensor:
 def gcn_selfloop_conv(g: Graph, x: torch.Tensor) -> torch.Tensor:
     """PyG GCNConv propagation D^-1/2 (A + I) D^-1/2 with degrees from
     (A + I) row sums of values."""
+    own = getattr(g, "gcn_selfloop_conv", None)
+    if own is not None:
+        return own(x)
     norm = torch.rsqrt(g.value_rowsum() + 1.0).to(x.dtype)[:, None]
     xn = norm * x
     return norm * (spmm(g, xn, "sum") + xn)

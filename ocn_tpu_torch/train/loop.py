@@ -66,11 +66,29 @@ comes from one ``torch.Generator`` per epoch, seeded from the host NumPy
 generator that also draws the batch permutation and negatives, exactly as
 ocn_tpu draws its PRNG key; the ELL offsets come from a NumPy generator
 derived from the epoch number.  ``evaluate`` gives Hits@K, ``evaluate_mrr``
-the citation2 MRR.  Not ported yet: meshes and node sharding
-(Config.require_supported).
+the citation2 MRR.
+
+Multi-device (``dp_devices * tp_devices > 1``): the Trainer is made in each
+rank of a running process group (parallel/launch.py) and builds the dp x tp
+mesh (parallel/mesh.py).
+
+* ``graph_sharding="replicated"``, the mesh step: the single-device step
+  on dp x tp ranks (the JAX package's GSPMD branch).  Every rank holds the
+  graph and runs the encoder; each link chunk is split into dp row blocks
+  and h into tp column blocks (parallel/shard.py: the chunk-wide column
+  sums, inner products and maxima reduce over "dp", every draw is the
+  single-device draw, the first Dense reading h is row-parallel); the
+  scores are gathered for the loss, and gradients are summed over the ranks
+  that computed disjoint parts of them.  Eval runs on every rank as on one
+  device.
+* ``graph_sharding="node"``: node-sharded training and eval
+  (parallel/sharded_graph.py): adjacency, A^2 (and A^3), the window or ELL
+  tables and the features live on the device as row-range shards; each
+  rank scores its own chunks of the batch.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -86,6 +104,7 @@ from ocn_tpu_torch.nn.predictors import (
     FRAME_BASED, SELF_BUILDING, THREE_HOP, build_predictor)
 from ocn_tpu_torch.ops.frame import CNFrame, cn3_frame, cn_frames
 from ocn_tpu_torch.ops.sample import sample_frames
+from ocn_tpu_torch.parallel import shard
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse import ell as ELL
 from ocn_tpu_torch.sparse.csr import Graph, graph_from_numpy
@@ -171,7 +190,8 @@ def _auto_rec_k(ds: LinkDataset, pad_deg: int) -> int:
 
 
 class Trainer:
-    """Drives one (dataset, config) pair on one device."""
+    """Drives one (dataset, config) pair on one device, or on one rank of a
+    dp x tp mesh (the process group must be running)."""
 
     def __init__(self, cfg: Config, ds: LinkDataset, device="cuda"):
         require_supported(cfg)
@@ -179,21 +199,33 @@ class Trainer:
         self.ds = ds
         self.device = resolve_device(device)
         self.frame_based = cfg.predictor in FRAME_BASED
+        self.mesh = None
+        if cfg.dp_devices * cfg.tp_devices > 1:
+            from ocn_tpu_torch.parallel.mesh import make_mesh
+            self.mesh = make_mesh(cfg.dp_devices, cfg.tp_devices, self.device)
+        # node sharding: the whole graph stays on the host, each rank's
+        # device gets its row-range shards (parallel/sharded_graph.py)
+        self.sharded = cfg.graph_sharding == "node" and self.mesh is not None
+        # the weights the mesh step ran row-parallel (parallel/shard.py)
+        self._tp_weights = set()
+        self._graph_device = torch.device("cpu") if self.sharded else self.device
         if cfg.rec_k < 0 and cfg.predictor in SELF_BUILDING:
             # written back into cfg, as the JAX package does
             cfg.rec_k = _auto_rec_k(ds, cfg.pad_deg)
         g_host = ds.as_graph()
-        self.g = g_host.to(self.device)
+        self.g = g_host.to(self._graph_device)
         full_host = ds.full_graph() if ds.full_edge_index is not None else None
-        self.full_g = full_host.to(self.device) if full_host is not None else self.g
+        self.full_g = (full_host.to(self._graph_device) if full_host is not None
+                       else self.g)
         # "bfloat16" stores the node features and the valid/correction
         # planes in bfloat16; parameters, h and the frames stay float32
         # (nn/mlp.py Dense), as in the JAX package
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        xdev = self._graph_device
         if ds.max_x >= 0:
-            self.x = torch.as_tensor(ds.x, dtype=torch.int64, device=self.device)
+            self.x = torch.as_tensor(ds.x, dtype=torch.int64, device=xdev)
         else:
-            self.x = torch.as_tensor(ds.x, dtype=self.dtype, device=self.device)
+            self.x = torch.as_tensor(ds.x, dtype=self.dtype, device=xdev)
 
         # precomputed A^2 for the "gather" two-hop mode: one host SpGEMM per
         # graph instead of the reference's per-batch SpGEMM (of the
@@ -247,9 +279,12 @@ class Trainer:
         if keep_host:  # the host CSR feeds cn6's A^3 SpGEMM
             self._adj2_host = (ip2, col2, val2)
         # consumed only through window gathers: upload indptr/deg and the
-        # packed entries (4 bytes each), or col/val where counts do not pack
-        return graph_from_numpy(ip2, col2, g.n_nodes, val2,
-                                gather_only=True).to(self.device)
+        # packed entries (4 bytes each), or col/val where counts do not pack;
+        # node sharding slices col/val on the host (the full layout, as in
+        # the JAX package)
+        return graph_from_numpy(
+            ip2, col2, g.n_nodes, val2,
+            gather_only=self.cfg.graph_sharding != "node").to(self._graph_device)
 
     def _build_adj3(self, g: Graph) -> Graph:
         """The row-capped A^3 = A^2 @ A (host SpGEMM, capped at adj3_cap),
@@ -261,8 +296,9 @@ class Trainer:
         n2 = int(ip2[-1])
         ip3, col3, val3 = B.spgemm_csr(ip2, col2[:n2], val2[:n2], ip, col, None,
                                        g.n_nodes, cap=self.cfg.adj3_cap)
-        return graph_from_numpy(ip3, col3, g.n_nodes, val3,
-                                gather_only=True).to(self.device)
+        return graph_from_numpy(
+            ip3, col3, g.n_nodes, val3,
+            gather_only=self.cfg.graph_sharding != "node").to(self._graph_device)
 
     def _k3_width(self) -> int:
         """Width of cn6's A^3 row gather and of its ELL table: Config.k3, or
@@ -271,11 +307,45 @@ class Trainer:
             return self.cfg.k3
         return min(self.cfg.pad_deg2, 16)
 
+    def _sharded_ell_k1(self) -> int:
+        """Width of the node-sharded g table: it serves the src gather
+        (pad_deg, or k_small) and the dst gather (pad_deg2_dst or pad_deg2),
+        since the sharded path has no CSR-window fallback."""
+        return max(self.cfg.pad_deg, self.cfg.pad_deg2_dst or self.cfg.pad_deg2)
+
+    def _chunk_interleave(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(positive, negative) column permutations, transmitted -> degree
+        sorted, for the node-sharded dual-K split: rank d's contiguous slice
+        of the batch holds nsp/ndev small chunks, then nbp/ndev big ones."""
+        if getattr(self, "_ichunk", None) is None:
+            c = self._chunk()
+            nchunk = self.cfg.batch_size // c
+            ndev = self.cfg.dp_devices
+
+            def perm(n_small: int) -> np.ndarray:
+                nsl, nbl = n_small // ndev, (nchunk - n_small) // ndev
+                order = []
+                for d in range(ndev):
+                    order += list(range(d * nsl, (d + 1) * nsl))
+                    order += list(range(n_small + d * nbl, n_small + (d + 1) * nbl))
+                return (np.asarray(order, np.int64)[:, None] * c
+                        + np.arange(c)).reshape(-1)
+
+            nsp, nsn = self._split
+            self._ichunk = (perm(nsp), perm(nsn))
+        return self._ichunk
+
     def _refresh_ell(self, rng: np.random.Generator) -> None:
         """Re-draw the frozen window offsets on the host and rebuild the
         ELL tables (g at pad_deg, A^2 at pad_deg2 where there is one, cn6's
-        A^3 at k3, whose offsets are drawn last) on the device."""
+        A^3 at k3, whose offsets are drawn last) on the device.  Node-sharded:
+        the tables are built on the host and only this rank's row-range
+        shards go to the device (parallel/sharded_graph.py)."""
         cfg = self.cfg
+        if self.sharded:
+            from ocn_tpu_torch.parallel.sharded_graph import refresh_sharded_ell
+            self._ell = refresh_sharded_ell(self, rng)
+            return
         off1 = ELL.draw_offsets(self._deg_np, cfg.pad_deg, rng)
         o1 = torch.as_tensor(off1, device=self.device)
         self._ell = dict(
@@ -313,6 +383,9 @@ class Trainer:
         cfg = self.cfg
         if cfg.k_small <= 0 or cfg.k_small >= cfg.pad_deg or cfg.hoist_frames:
             return None
+        if self.sharded and cfg.predictor in SELF_BUILDING:
+            # the node-sharded step covers the frame-based predictors only
+            return None
         nchunk = cfg.batch_size // self._chunk()
         deg = self._deg_np
         if cfg.small_frac >= 0:
@@ -327,6 +400,15 @@ class Trainer:
             fneg = float(np.mean(deg <= cfg.k_small))
         nsp = min(nchunk, int(fp * nchunk))
         nsn = min(nchunk, int(fneg * nchunk))
+        if self.sharded:
+            # each rank gets nsp/ndev small and nbp/ndev big chunks (the
+            # round-robin interleave of prepare_batch): round each side down
+            # to a multiple of ndev, which moves low-degree chunks to the big
+            # body and caps no extra edge; no frame groups there
+            ndev = cfg.dp_devices
+            nsp -= nsp % ndev
+            nsn -= nsn % ndev
+            return (nsp, nsn) if nsp + nsn else None
         grp = max(cfg.frame_group, 1)
         while nsp + nsn > 0 and (nsp + nsn) % grp:
             if nsn >= nsp and nsn > 0:
@@ -371,7 +453,9 @@ class Trainer:
     def _score_chunk(self, state: TrainState, h, g: Graph, edges, valid, gen,
                      training: bool, adj2: Optional[Graph], corr=None, y=None,
                      k: Optional[int] = None, grp: int = 1,
-                     adj3: Optional[Graph] = None) -> torch.Tensor:
+                     adj3: Optional[Graph] = None,
+                     share: Optional[Tuple[torch.Tensor, int]] = None
+                     ) -> torch.Tensor:
         """Score ``grp`` chunks of C links, (2, grp*C) edges; returns
         (grp*C,) scores.  ``corr``: (grp*C,) maskinput self-path correction
         (1 for positive train edges whose (i, j) was just masked out).  In
@@ -395,7 +479,11 @@ class Trainer:
         ``gen`` as both its dropout and its sample stream in training and,
         when cfg.eval_sampling, as its sample stream at eval; it reads
         neither ``valid`` nor ``corr``, as in the JAX package.  ``cndeg``
-        caps the frame-based CN sets, both from one draw of the group."""
+        caps the frame-based CN sets, both from one draw of the group.
+
+        ``share`` (rows, full chunk size): in the mesh step each chunk here
+        is this rank's rows of a full chunk (_mesh_group), and the predictor
+        runs with them as its RowShard (parallel/shard.py)."""
         cfg = self.cfg
         frame_gen = gen if (training or cfg.eval_sampling) else None
         if not self.frame_based:
@@ -424,11 +512,13 @@ class Trainer:
         outs = []
         for j in range(grp):
             sl = slice(j * c, (j + 1) * c)
-            out = state.predictor(
-                h, g.n_nodes, *[CNFrame(f.ids[sl], f.val[sl], g.n_nodes)
-                                for f in frames], edges[:, sl],
-                gen if training else None, y=y,
-                pos=src.pos[sl] if y is not None else None)
+            with (shard.rows(self.mesh, *share, self._tp_weights, self.cfg.hiddim)
+                  if share is not None else contextlib.nullcontext()):
+                out = state.predictor(
+                    h, g.n_nodes, *[CNFrame(f.ids[sl], f.val[sl], g.n_nodes)
+                                    for f in frames], edges[:, sl],
+                    gen if training else None, y=y,
+                    pos=src.pos[sl] if y is not None else None)
             outs.append(out.reshape(-1))
         return torch.cat(outs) if grp > 1 else outs[0]
 
@@ -496,34 +586,17 @@ class Trainer:
         state.encoder.train()
         state.predictor.train()
         h = state.encoder(self.x, g, gen)
+        if self.mesh is not None and self.mesh.tp > 1:
+            # the predictor holds this rank's tp column share of h
+            w = h.shape[-1] // self.mesh.tp
+            h = h[:, self.mesh.tp_rank * w:(self.mesh.tp_rank + 1) * w]
         # the window table: one CSR-order row gather per step; the gradient
         # to h flows through the frame matmuls' backward, not through y
         y = h.detach()[g.col] if self._window_table() else None
 
         def score(edges, n_pos, k=None):
-            # (2, n*c) edges, the first n_pos chunks positive, scored in
-            # groups of _group_size(n, frame_group) chunks, or hoisted: one
-            # group of all n
-            n = edges.shape[1] // c
-            if cfg.predictor in THREE_HOP or not self.frame_based:
-                grp = 1
-            elif cfg.hoist_frames:
-                grp = max(n, 1)
-            else:
-                grp = _group_size(n, cfg.frame_group)
-            valid = torch.ones(grp * c, dtype=self.dtype, device=self.device)
-            out = []
-            for i in range(0, n, grp):
-                # positive chunks lead the body, so a group's are a prefix
-                npos = min(max(n_pos - i, 0), grp)
-                corr = None
-                if cfg.maskinput and npos:
-                    corr = valid if npos == grp else torch.cat(
-                        [valid[:npos * c], torch.zeros_like(valid[npos * c:])])
-                out.append(self._score_chunk(
-                    state, h, g, edges[:, i * c:(i + grp) * c], valid, gen,
-                    True, adj2, corr=corr, y=y, k=k, grp=grp, adj3=adj3))
-            return torch.cat(out) if out else h.new_zeros(0)
+            return self._score_body(state, h, g, edges, n_pos, gen, adj2, adj3,
+                                    y=y, k=k, split=self.mesh is not None)
 
         if split is None:
             out = score(torch.cat([pos, neg], dim=1), nchunk)
@@ -538,6 +611,84 @@ class Trainer:
         neg_sorted = torch.cat([small[nsp * c:], big[nbp:]])
         # the original batch order, so per-index pos/neg pairing survives
         return self._loss(pos_sorted[inv_p], neg_sorted[inv_n])
+
+    def _score_body(self, state: TrainState, h, g, edges, n_pos: int, gen,
+                    adj2, adj3, y=None, k: Optional[int] = None,
+                    grouped: bool = True, split: bool = False) -> torch.Tensor:
+        """Training scores of a body of (2, n*C) edges, the first ``n_pos``
+        chunks positive, in groups of _group_size(n, frame_group) chunks, or
+        hoisted (one group of all n); ``grouped=False`` scores chunk by
+        chunk.  ``split``: the mesh step (_mesh_group)."""
+        cfg = self.cfg
+        c = self._chunk()
+        n = edges.shape[1] // c
+        if cfg.predictor in THREE_HOP or not self.frame_based or not grouped:
+            grp = 1
+        elif cfg.hoist_frames:
+            grp = max(n, 1)
+        else:
+            grp = _group_size(n, cfg.frame_group)
+        valid = torch.ones(grp * c, dtype=self.dtype, device=self.device)
+        score = self._mesh_group if split else self._score_chunk
+        out = []
+        for i in range(0, n, grp):
+            # positive chunks lead the body, so a group's are a prefix
+            npos = min(max(n_pos - i, 0), grp)
+            corr = None
+            if cfg.maskinput and npos:
+                corr = valid if npos == grp else torch.cat(
+                    [valid[:npos * c], torch.zeros_like(valid[npos * c:])])
+            out.append(score(state, h, g, edges[:, i * c:(i + grp) * c], valid,
+                             gen, True, adj2, corr=corr, y=y, k=k, grp=grp,
+                             adj3=adj3))
+        return torch.cat(out) if out else h.new_zeros(0)
+
+    def _mesh_group(self, state: TrainState, h, g, edges, valid, gen, training,
+                    adj2, corr=None, y=None, k=None, grp=1, adj3=None):
+        """_score_chunk of a group in the mesh step: this rank scores its
+        dp row block of each of the group's chunks, with the group's draws
+        and chunk-wide reductions those of the single-device step
+        (parallel/shard.py), and the scores are gathered over "dp" back into
+        the group's order.  Every rank computes the same loss from them, so
+        each rank's scores get their own slice of its cotangent."""
+        from ocn_tpu_torch.parallel.launch import AllGatherRows
+
+        mesh = self.mesh
+        c = edges.shape[1] // grp
+        if c % mesh.dp:
+            raise ValueError(f"link chunk {c} does not split over dp={mesh.dp}")
+        cl = c // mesh.dp
+        lane = torch.arange(cl, device=edges.device) + mesh.dp_rank * cl
+        idx = (torch.arange(grp, device=edges.device)[:, None] * c + lane).reshape(-1)
+        with shard.rows(mesh, idx, grp * c, self._tp_weights, self.cfg.hiddim):
+            local = self._score_chunk(
+                state, h, g, edges[:, idx], valid[idx], gen, training, adj2,
+                corr=None if corr is None else corr[idx], y=y, k=k, grp=grp,
+                adj3=adj3, share=(lane, c))
+        if mesh.dp == 1:
+            return local
+        out = AllGatherRows.apply(local, mesh.comm, mesh.dp_group, "slice")
+        return out.reshape(mesh.dp, grp, cl).transpose(0, 1).reshape(-1)
+
+    def _sync_mesh_grads(self, state: TrainState) -> None:
+        """Sum the gradients of the mesh step over the ranks that computed
+        disjoint parts of them: the encoder's and the row-parallel weights'
+        over every rank (each rank's h cotangent covers its rows and its
+        columns), the rest of the predictor's over "dp" (the tp ranks of a
+        row block compute it alike)."""
+        mesh = self.mesh
+        world = list(state.encoder.parameters())
+        dp_only = []
+        for p in state.predictor.parameters():
+            (world if id(p) in self._tp_weights else dp_only).append(p)
+        mesh.comm.sum_grads(world, None, mesh.size)
+        mesh.comm.sum_grads(dp_only, mesh.dp_group, mesh.dp)
+
+    def row_parallel_names(self, state: TrainState):
+        """Names (as in ``state.predictor.state_dict()``) of the weights the
+        mesh step computed row-parallel so far (weights.tp_shard)."""
+        return {name for name, p in state.predictor.named_parameters()
+                if id(p) in self._tp_weights}
 
     def _window_table(self) -> bool:
         """The window table serves the frame-based predictors' CSR windows
@@ -554,11 +705,23 @@ class Trainer:
         and negative (2, batch_size) edges, mask positions, and with the
         dual-K split the inverse permutations); returns (state, detached
         loss)."""
+        if self.sharded:
+            return self._sharded_train().step(state, pos, neg, mask_positions,
+                                              gen, inv_p, inv_n)
         loss = self.step_loss(state, pos, neg, mask_positions, gen, inv_p, inv_n)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            self._sync_mesh_grads(state)
         state.opt.step()
         return state, loss.detach()
+
+    def _sharded_train(self):
+        """The node-sharded train step of this rank (built on first use)."""
+        if getattr(self, "_sg_step", None) is None:
+            from ocn_tpu_torch.parallel.sharded_graph import ShardedGraphStep
+            self._sg_step = ShardedGraphStep(self)
+        return self._sg_step
 
     # ------------------------------------------------------------- epoch API
     def prepare_batch(self, pos_b: np.ndarray, neg_b: np.ndarray,
@@ -572,13 +735,22 @@ class Trainer:
         positions, the current tables, and the batch edges' positions inside
         the frozen windows with the cleared entries to write there.
         Returns (pos, neg, mask_positions, inv_p, inv_n) as device tensors
-        (None where they do not apply)."""
+        (None where they do not apply).
+
+        Node-sharded: the degree sort is followed by the round-robin chunk
+        interleave (_chunk_interleave), so the inverse permutations map
+        original to transmitted positions; the mask positions stay on the
+        host (the CSR positions, or a dict with the ELL flat positions at the
+        sharded table's width), for the step to route to each rank."""
         dev = self.device
         inv_p = inv_n = None
         if self._split is not None:
             ar = np.arange(pos_b.shape[1])
             sp = np.argsort(self._deg_np[pos_b[0]], kind="stable")
             sn = np.argsort(self._deg_np[neg_b[0]], kind="stable")
+            if self.sharded:
+                cp, cpn = self._chunk_interleave()
+                sp, sn = sp[cp], sn[cpn]
             pos_b, neg_b = pos_b[:, sp], neg_b[:, sn]
             if idx is not None:
                 idx = idx[sp]
@@ -592,7 +764,14 @@ class Trainer:
         if self.edge2pos is not None and idx is not None:
             mp_np = np.maximum(self.edge2pos[idx].reshape(-1), 0)
             mp = torch.as_tensor(mp_np, dtype=torch.int64, device=dev)
-        if self._ell is not None:
+        if self.sharded:
+            mp = mp_np
+            if self._ell is not None and mp_np is not None:
+                flat, cleared = ELL.mask_ell_flat_positions(
+                    pos_b, mp_np, self._indptr_np, self._ell["off1_np"],
+                    self._sharded_ell_k1())
+                mp = {"csr": mp_np, "ell_flat": flat, "ell_cleared": cleared}
+        elif self._ell is not None:
             ell = self._ell
             aux = {"csr": mp, "ell1": ell["tbl1"], "off1": ell["off1"]}
             if "tbl2" in ell:  # no A^2 for cn2/cn4
@@ -663,9 +842,22 @@ class Trainer:
     @torch.no_grad()
     def encode(self, state: TrainState, full: bool = False) -> torch.Tensor:
         """Eval-mode hidden states over the train graph (or the train+valid
-        graph with ``full``)."""
+        graph with ``full``); node-sharded, the encoder runs on the shards
+        and h is gathered whole."""
         state.encoder.eval()
+        if self.sharded:
+            return self._sharded_eval().encode(state, full)
         return state.encoder(self.x, self.full_g if full else self.g)
+
+    def _sharded_eval(self):
+        """The node-sharded encoder and scorers of this rank (built on first
+        use; eval before any epoch builds epoch 1's ELL tables)."""
+        if getattr(self, "_sg_eval", None) is None:
+            from ocn_tpu_torch.parallel.sharded_graph import ShardedEval
+            if self._use_ell and self.cfg.ell_eval and self._ell is None:
+                self._refresh_ell(epoch_ell_rng(1))
+            self._sg_eval = ShardedEval(self)
+        return self._sg_eval
 
     @torch.no_grad()
     def _score_batches(self, state: TrainState, h, g: Graph, edges: np.ndarray,
@@ -713,6 +905,10 @@ class Trainer:
         windows, so it sorts by the larger of the two degrees."""
         cfg = self.cfg
         n = edges.shape[0]
+        if self.sharded:
+            return self._sharded_eval().scores(state, h, edges,
+                                               full=g is self.full_g
+                                               and g is not self.g)
         if not (cfg.dual_k_eval and 0 < cfg.k_small < cfg.pad_deg
                 and n > cfg.testbs):
             return self._score_batches(state, h, g, edges, adj2)
@@ -739,7 +935,8 @@ class Trainer:
         """(g, adj2) for eval scoring, with the current ELL tables attached
         when ``ell_eval`` (rows with degree <= pad_deg score the same;
         capped rows use the frozen window)."""
-        if self.cfg.ell_eval and self._use_ell and self._ell is not None:
+        if (self.cfg.ell_eval and self._use_ell and self._ell is not None
+                and not self.sharded):  # the sharded tables are shards
             a2 = self.adj2
             if "tbl2" in self._ell:
                 a2 = a2.with_ell(self._ell["tbl2"], self._ell["off2"])
@@ -750,7 +947,7 @@ class Trainer:
         """cn6's A^3 for eval: the train graph's, on every split (the
         train+valid graph has none), with its ELL table when ``ell_eval``."""
         if (self.adj3 is not None and self.cfg.ell_eval and self._use_ell
-                and self._ell is not None):
+                and self._ell is not None and not self.sharded):
             return self.adj3.with_ell(self._ell["tbl3"], self._ell["off3"])
         return self.adj3
 

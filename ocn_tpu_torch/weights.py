@@ -228,3 +228,27 @@ def state_from_jax(jstate, state):
     adam_from_jax(state.opt, state.encoder, state.predictor, jstate.opt_state,
                   jstate.ema, jstate.sched)
     return state
+
+
+def tp_shard(tensors: Mapping[str, torch.Tensor], row_parallel, tp_rank: int,
+             tp: int) -> Dict[str, torch.Tensor]:
+    """One tp rank's shard of a full port state (a name -> tensor mapping,
+    e.g. a module's state_dict): each row-parallel weight, (out, in), keeps
+    its rank's block of input columns, the block the mesh step computes with
+    (parallel/shard.py); every other tensor is whole on every rank.
+    ``row_parallel``: the names of the row-parallel weights
+    (Trainer.row_parallel_names)."""
+    out = {}
+    for name, t in tensors.items():
+        if name in row_parallel:
+            w = t.shape[1] // tp
+            t = t[:, tp_rank * w:(tp_rank + 1) * w]
+        out[name] = t.clone()
+    return out
+
+
+def tp_join(shards, row_parallel) -> Dict[str, torch.Tensor]:
+    """The full state from the tp ranks' shards (tp_shard's inverse)."""
+    return {name: torch.cat([s[name] for s in shards], dim=1)
+            if name in row_parallel else t.clone()
+            for name, t in shards[0].items()}

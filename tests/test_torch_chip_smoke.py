@@ -55,7 +55,7 @@ def test_reference_phase_on_cpu(on_cpu, monkeypatch, capsys):
 
 def test_bench_and_gather_phases_on_cpu(on_cpu, capsys):
     ds = synthetic_dataset("collab", seed=0, scale=0.01).reorder_bfs()
-    launches, shapes = chip_smoke.phase_bench_slice(ds, **TINY)
+    launches, shapes, losses = chip_smoke.phase_bench_slice(ds, **TINY)
     sizes = dict(m=2048, n=1500, h=16, e2=9000, b2=64, k2=64, ts=256, w=512)
     g_launches, variants = chip_smoke.phase_gather_bench(iters=1, warmup=0,
                                                          **sizes)
@@ -69,6 +69,7 @@ def test_bench_and_gather_phases_on_cpu(on_cpu, capsys):
     assert launches == 12 + bench["membership_launches_eval"]
     assert (bench["x_dtype"], bench["h_dtype"]) == ("torch.bfloat16", "torch.float32")
     assert bench["group_score_max_abs_err"] == 0.0
+    assert losses == bench["losses"]
     # membership by (rows, Kq, Ks): a group is 8 chunks of 128 rows, and
     # the small body's queries are k_small = 16 wide
     assert sum(shapes.values()) == 12

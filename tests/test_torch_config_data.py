@@ -46,11 +46,13 @@ def test_config_defaults_and_fields_match():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("dp_devices", 4), ("graph_sharding", "node"),
+    ("tp_devices", 2), ("predictor", "cn3"),
 ])
 def test_unported_fields_raise(field, value):
-    cfg = tcfg.Config(**{field: value})
-    with pytest.raises(NotImplementedError, match=f"Config.{field}"):
+    # the port refuses what the JAX package refuses: on node-sharded ranks
+    # tp stays 1 and the incomplete family is out of the step's scope
+    cfg = tcfg.Config(**{field: value, "dp_devices": 4, "graph_sharding": "node"})
+    with pytest.raises(ValueError, match=f"Config.{field}"):
         tcfg.require_supported(cfg)
 
 
@@ -82,8 +84,9 @@ def test_unknown_values_are_refused(field, value):
 def test_collab_preset_needs_the_knobs_off():
     # presets("collab", "cn5") (ELL tables, k_small=16) runs as it is, with
     # the window table, at bench.py's frame_group 8 and bfloat16, and with
-    # hoisted frames; so do the OCNP presets and the incomplete family; a
-    # mesh raises
+    # hoisted frames; so do the OCNP presets and the incomplete family, on
+    # one device or on a mesh; node sharding refuses the family, as the JAX
+    # package does
     tcfg.require_supported(tcfg.presets("collab", "cn5"))
     tcfg.require_supported(tcfg.presets("collab", "cn5", window_table=True))
     tcfg.require_supported(tcfg.presets("collab", "cn5", frame_group=8,
@@ -94,8 +97,10 @@ def test_collab_preset_needs_the_knobs_off():
         tcfg.require_supported(tcfg.presets(ds, "cn7"))
     for pred in ("cn2", "cn3", "cn4"):
         tcfg.require_supported(tcfg.presets("collab", pred, cndeg=32))
-    with pytest.raises(NotImplementedError, match="Config.dp_devices"):
-        tcfg.require_supported(tcfg.presets("collab", "cn3", dp_devices=4))
+    tcfg.require_supported(tcfg.presets("collab", "cn3", dp_devices=4))
+    with pytest.raises(ValueError, match="Config.predictor"):
+        tcfg.require_supported(tcfg.presets("collab", "cn3", dp_devices=4,
+                                            graph_sharding="node"))
 
 
 def _assert_dataset_equal(a, b):
@@ -296,7 +301,10 @@ def _imported_roots(path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # the package, the card's script, and the rank bodies of the
+    # multi-device tests (spawned ranks import no JAX)
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_dist.py")]
     for root, _, names in os.walk(os.path.join(REPO, "ocn_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
