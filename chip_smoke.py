@@ -131,6 +131,14 @@ and the script exits nonzero:
              JSON line, membership launches (> 0) and peak memory; then its
              OCN_BENCH_WINDOW=1 OCN_BENCH_PAIR=0 variant, which must launch
              the window gather.
+12c. accuracy_slice - arm 1 of the accuracy study through the port's
+             instrument (ocn_tpu_torch/scripts/accuracy_parity.py run_one):
+             sbm at scale 1.0, cn5, capped_ell, seed 0, all 24 epochs,
+             evaluated every third.  The last epoch's loss below the
+             first's, membership launched and its plain version never run
+             on the card, and the best test Hits@50 at least
+             ACCURACY_MIN_HITS50, half of the JAX package's mean on the arm.
+             Its line holds the instrument's record.
 13. ppa_slice - bench.py's ppa shape (bench.py:118-151): the 1-layer "ho"
              gcn at hidden 64 on synthetic ppa (integer features, BFS-
              relabelled) at PPA_SCALE, path-count cn2, batch 16384 in chunks
@@ -161,7 +169,7 @@ and the script exits nonzero:
              scripts/bench_gather.py on the card); each kernel must launch.
 
 The datasets of phases 13-15 are made in two worker processes while the
-card runs phases 1-12b; their lines give the workers' seconds and the wait.
+card runs phases 1-12c; their lines give the workers' seconds and the wait.
 Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits
 (or mrr), its membership launches (per step, in eval, by shape) and peak
 device memory (train and eval apart where both run); the phases on new
@@ -1116,6 +1124,14 @@ def phase_bench_slice(ds, **overrides):
     return (sum(train["membership_launches_per_step"])
             + evals["membership_launches_eval"]), shapes, train["losses"]
 
+
+# arm 1 of the accuracy study (ocn_tpu_torch/scripts/accuracy_parity.py):
+# the production default on the sbm learnability graph
+ACCURACY_ARM = dict(graph="sbm", variant="capped_ell", predictor="cn5",
+                    epochs=24, eval_every=3, scale=1.0)
+# half the JAX package's mean best test Hits@50 on arm 1: seeds 0-2 on the
+# CPU gave 0.15233, 0.21119 and 0.19876 (results/parity_jax_head.jsonl)
+ACCURACY_MIN_HITS50 = 0.5 * 0.18743
 
 # the multi-device phases: bench.py's program on dp x tp ranks that share the
 # card (gloo: NCCL takes one rank a card), each rank a process of its own
@@ -2298,6 +2314,66 @@ def made_dataset(job):
     return ds, {**data, "waited_s": time.perf_counter() - t0}
 
 
+@contextlib.contextmanager
+def plain_membership_calls():
+    """Count the calls of membership's plain version over a region, by the
+    device of their tensors: on the card the wrapper launches its kernel
+    and never runs the plain version, which this shows."""
+    from ocn_tpu_torch.ops import membership as M
+
+    plain = M.membership_counts_plain
+    calls = collections.Counter()
+
+    def counted(q, ids, w):
+        calls[q.device.type] += 1
+        return plain(q, ids, w)
+
+    M.membership_counts_plain = counted
+    try:
+        yield calls
+    finally:
+        M.membership_counts_plain = plain
+
+
+def phase_accuracy_slice(scale=ACCURACY_ARM["scale"],
+                         epochs=ACCURACY_ARM["epochs"]):
+    """Arm 1 of the accuracy study at seed 0 through the port's instrument
+    (ocn_tpu_torch/scripts/accuracy_parity.py run_one): sbm, cn5,
+    capped_ell, every epoch, evaluated every third.  The last epoch's loss
+    must be below the first's, membership must launch and its plain
+    version never run on the card, and the best test Hits@50 must reach
+    half of the JAX package's mean on this arm.  Prints the instrument's
+    record; returns (membership launches, launches by shape)."""
+    from ocn_tpu_torch.ops import membership as M
+    from ocn_tpu_torch.scripts import accuracy_parity
+
+    t0 = time.perf_counter()
+    M.membership_counts.launches = 0
+    M.membership_counts.shapes.clear()
+    with plain_membership_calls() as plain:
+        rec = accuracy_parity.run_one(
+            ACCURACY_ARM["graph"], ACCURACY_ARM["variant"], 0, epochs,
+            ACCURACY_ARM["eval_every"], ACCURACY_ARM["predictor"], scale,
+            device=DEVICE)
+    launches = M.membership_counts.launches
+    shapes = collections.Counter(M.membership_counts.shapes)
+    emit({"phase": "accuracy_slice", "seconds": time.perf_counter() - t0,
+          "plain_membership_calls": dict(plain), "record": rec})
+    losses, hits50 = rec["losses"], rec["best"]["Hits@50"][2]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"accuracy_slice: losses {losses}")
+    if launches == 0 or rec["membership_launches"] != launches:
+        raise AssertionError(f"accuracy_slice: membership launches {launches}, "
+                             f"record {rec['membership_launches']}")
+    if plain["cuda"]:
+        raise AssertionError(f"accuracy_slice: membership's plain version "
+                             f"ran {plain['cuda']} times on the card")
+    if hits50 < ACCURACY_MIN_HITS50:
+        raise AssertionError(f"accuracy_slice: best test Hits@50 {hits50} "
+                             f"< {ACCURACY_MIN_HITS50}")
+    return launches, shapes
+
+
 def run_phases(jobs) -> int:
     from ocn_tpu_torch.data.loaders import synthetic_dataset
     from ocn_tpu_torch.ops import membership, row_gather, window_gather
@@ -2346,6 +2422,10 @@ def run_phases(jobs) -> int:
     new["bench_program"] = bench_launches
     new["cli_slice"] = cli_launches
     torch.cuda.empty_cache()
+    # while the workers finish the ppa and citation2 datasets
+    new["accuracy_slice"], phase_shapes = phase_accuracy_slice()
+    shapes = shapes + phase_shapes
+    torch.cuda.empty_cache()
     # bench.py's ppa and citation2 shapes and the spd preset, each on a
     # dataset of its own, made here
     ds, data = made_dataset(jobs["ppa"])
@@ -2371,7 +2451,8 @@ def run_phases(jobs) -> int:
     w_err, w_timings = kern["window"]
     emit({"kernels": [
         kernel_entry("membership_counts", membership, membership.REPLACES,
-                     m_launches + bench_launches + cli_launches, m_err, m_timing,
+                     m_launches + bench_launches + cli_launches
+                     + new["accuracy_slice"], m_err, m_timing,
                      launches_slice=m_launches,
                      launches_window_slice=w_train["membership"] + w_eval["membership"],
                      launches_bench_slice=b_launches,

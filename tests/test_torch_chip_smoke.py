@@ -244,3 +244,27 @@ def test_presets_phase_on_cpu(on_cpu, capsys):
     assert launches == sum(r["membership_launches_step"] + r["membership_launches_eval"]
                            for r in line["keys"].values())
     assert sum(shapes.values()) == launches
+
+
+def test_accuracy_phase_on_cpu(on_cpu, capsys):
+    """accuracy_slice through the port's instrument at sbm scale 0.25 and 2
+    epochs (at 0.1 the graph's 102 train edges are fewer than the
+    instrument's smallest batch, 256, and no step would run)."""
+    launches, shapes = chip_smoke.phase_accuracy_slice(scale=0.25, epochs=2)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [line["phase"] for line in lines] == ["accuracy_slice"]
+    line = lines[0]
+    rec = line["record"]
+    assert (rec["graph"], rec["variant"], rec["predictor"], rec["run"]) == (
+        "sbm", "capped_ell", "cn5", 0)
+    assert rec["package"] == "ocn_tpu_torch" and rec["device"] == "cpu"
+    assert len(rec["losses"]) == 2 and rec["losses"][1] < rec["losses"][0]
+    # one step an epoch (a positive and a negative chunk) and the evals,
+    # two membership lookups a chunk
+    assert launches == rec["membership_launches"] == sum(shapes.values()) > 0
+    assert {(kq, ks) for _, kq, ks in shapes} == {(64, 64)}
+    # on the CPU the wrapper runs the plain version, never on a card tensor
+    assert line["plain_membership_calls"]["cpu"] == launches
+    assert "cuda" not in line["plain_membership_calls"]
+    assert rec["best"]["Hits@50"][2] >= chip_smoke.ACCURACY_MIN_HITS50
