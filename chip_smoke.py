@@ -123,6 +123,18 @@ and the script exits nonzero:
              in training and in eval; the largest lookup's expanded query
              bytes; one small-body and one big-body chunk re-scored with the
              plain version.
+12a. eval_bench - the port's eval instrument (ocn_tpu_torch/scripts/
+             bench_eval.py) at its defaults on family_slice's dataset: the
+             collab program at batch and testbs 65536, cn5, bfloat16 x, the
+             ELL tables built once from default_rng(1), and one Trainer whose
+             ell_eval and dual_k_eval are set arm by arm (both, ELL alone,
+             neither), each arm a warm and a timed evaluate over every eval
+             split (1,320,615 scored links).  Per arm its seconds, edges/s,
+             Hits@K, membership launches by shape and peak memory, and the
+             script's line; valid and test Hits@50 within 1e-3 across the
+             arms, membership launched in every arm and its plain version
+             never on the card, and one dual-K eval chunk of the first arm
+             re-scored with the plain version (1e-5).
 12b. bench_program - the port's bench program (ocn_tpu_torch/scripts/
              bench.py main(), in-process, as python -m runs it) at its full
              defaults: synthetic collab at scale 1.0, cn5, gcn x 3 at hidden
@@ -139,6 +151,17 @@ and the script exits nonzero:
              on the card, and the best test Hits@50 at least
              ACCURACY_MIN_HITS50, half of the JAX package's mean on the arm.
              Its line holds the instrument's record.
+12d. scaling_bench - the port's weak-scaling harness (ocn_tpu_torch/
+             scripts/bench_scaling.py) at S_PERDEV 512 in its three modes
+             (the explicit DP step, the bare node-sharded step, node sharding
+             through the Trainer with ELL shards and the dual-K interleave)
+             at dp 1, 2 and 4 (SCALING_DPS; the script's own default adds 8):
+             one launch of dp ranks a dp, every mode in each rank, ranks
+             sharing the card (gloo; dp 1, one rank, takes NCCL).  Per mode
+             and dp the script's line (the slowest rank's ms a step,
+             edges/s, efficiency against dp 1), each rank's losses and
+             membership launches; every loss finite, membership launched in
+             every rank and mode, its plain version never on the card.
 13. ppa_slice - bench.py's ppa shape (bench.py:118-151): the 1-layer "ho"
              gcn at hidden 64 on synthetic ppa (integer features, BFS-
              relabelled) at PPA_SCALE, path-count cn2, batch 16384 in chunks
@@ -161,15 +184,24 @@ and the script exits nonzero:
              Membership exactly once per chunk (cn1; the counts' lookup is
              past _COMPARE_LIMIT and takes the binary search); one chunk
              re-scored.
+15b. mrr_bench - the port's MRR instrument (ocn_tpu_torch/scripts/
+             bench_mrr.py) at its defaults: bench.py's citation2 shape on
+             synthetic citation2 at scale 0.25 (BFS-relabelled; made by a
+             worker), the valid and test splits cut to 8,192 sources with
+             1,000 negatives each from default_rng(1) (16,400,384 scored
+             links), testbs 65536; a warm and a timed evaluate_mrr.  Its
+             seconds, links/s, MRR (finite, in (0, 1]), whether the ELL
+             tables ran, membership launches by shape (its plain version
+             never on the card) and peak memory, and the script's line.
 16. membership_shapes - the membership kernel at each (rows, Kq, Ks) that
-             phases 6-15 launched: exact against its plain version with unit
-             weights, then timed beside its bound.
+             phases 6-15b launched: exact against its plain version with
+             unit weights, then timed beside its bound.
 17. gather_bench - the row-gather instrument ocn_tpu_torch.scripts.bench_gather
              at its full size (the three gather kernels of
              scripts/bench_gather.py on the card); each kernel must launch.
 
-The datasets of phases 13-15 are made in two worker processes while the
-card runs phases 1-12c; their lines give the workers' seconds and the wait.
+The datasets of phases 13-15b are made in three worker processes while the
+card runs phases 1-12d; their lines give the workers' seconds and the wait.
 Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits
 (or mrr), its membership launches (per step, in eval, by shape) and peak
 device memory (train and eval apart where both run); the phases on new
@@ -2015,6 +2047,22 @@ def phase_presets_slice(datasets, scale=1.0, large_scale=PRESET_SCALE,
     return launches, shapes
 
 
+@contextlib.contextmanager
+def bench_knobs(env):
+    """Exactly the OCN_BENCH_* knobs of ``env`` set over a region, the
+    ones set before restored after."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("OCN_BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
 def run_bench_program(env, anchors=None):
     """The port's bench program in-process, as ``python -m
     ocn_tpu_torch.scripts.bench`` runs it, with exactly the OCN_BENCH_*
@@ -2024,12 +2072,8 @@ def run_bench_program(env, anchors=None):
     from ocn_tpu_torch.ops.membership import membership_counts
     from ocn_tpu_torch.scripts import bench
 
-    saved = {k: v for k, v in os.environ.items() if k.startswith("OCN_BENCH_")}
-    for k in saved:
-        del os.environ[k]
-    os.environ.update(env)
     out = io.StringIO()
-    try:
+    with bench_knobs(env):
         torch.cuda.reset_peak_memory_stats()
         membership_counts.launches = 0
         W.window_rows.launches = 0
@@ -2039,10 +2083,6 @@ def run_bench_program(env, anchors=None):
         seconds = time.perf_counter() - t0
         launches = {"membership": membership_counts.launches,
                     "window_rows": W.window_rows.launches}
-    finally:
-        for k in env:
-            del os.environ[k]
-        os.environ.update(saved)
     lines = [line for line in out.getvalue().splitlines() if line.startswith("{")]
     if [json.loads(line) for line in lines] != [rec]:
         raise AssertionError(f"bench program: printed {lines}, returned {rec}")
@@ -2276,6 +2316,24 @@ def phase_membership_shapes(shapes):
     return timings
 
 
+# the phases whose membership launches make up the kernel's "launches":
+# the main path and the entry points that users run it through
+MEMBERSHIP_MAIN = ("slice", "bench_program", "cli_slice", "accuracy_slice",
+                   "eval_bench", "mrr_bench", "scaling_bench")
+
+
+def membership_entry(err, timing, by_phase, shapes):
+    """Membership's entry of the kernels line: ``by_phase`` ({phase:
+    launches}) as launches_<phase>, their sum over MEMBERSHIP_MAIN as
+    ``launches``, the timed shapes as ``model_shapes``."""
+    from ocn_tpu_torch.ops import membership
+
+    return kernel_entry("membership_counts", membership, membership.REPLACES,
+                        sum(by_phase[k] for k in MEMBERSHIP_MAIN), err, timing,
+                        **{f"launches_{k}": n for k, n in by_phase.items()},
+                        model_shapes=shapes)
+
+
 def kernel_entry(name, module, replaces, launches, err, timing, **extra):
     """One entry of the {"kernels": [...]} line."""
     return {"name": name, "route": "cuda", "source": module.SOURCE,
@@ -2295,14 +2353,20 @@ def main() -> int:
     # full float32 matrix products (no TF32), as the JAX reference computes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the ppa and citation2 datasets take minutes of NumPy on the host: two
-    # worker processes make them while the card runs phases 1-12
-    with ProcessPoolExecutor(max_workers=2,
+    from ocn_tpu_torch.scripts import bench_mrr
+
+    with bench_knobs({}):
+        mrr_scale, mrr_cap = bench_mrr.mrr_knobs()[:2]
+    # the ppa and citation2 datasets take minutes of NumPy on the host:
+    # three worker processes make them (and mrr_bench's) while the card runs
+    # phases 1-12d
+    with ProcessPoolExecutor(max_workers=3,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         jobs = {"ppa": pool.submit(new_dataset, "ppa", PPA_SCALE, EVAL_CUT,
                                    EVAL_CUT),
                 "citation2": pool.submit(new_dataset, "citation2", 1.0,
-                                         TRAIN_CUT, MRR_CUT)}
+                                         TRAIN_CUT, MRR_CUT),
+                "mrr": pool.submit(mrr_dataset_job, mrr_scale, mrr_cap)}
         return run_phases(jobs)
 
 
@@ -2374,6 +2438,238 @@ def phase_accuracy_slice(scale=ACCURACY_ARM["scale"],
     return launches, shapes
 
 
+def eval_rescore(tr, state):
+    """One eval chunk of the Trainer's current arm scored with membership's
+    kernel and with its plain version, both under deterministic
+    algorithms: the first testbs train positives in source-degree order at
+    width k_small (the dual-K split's small body), on the arm's eval graphs
+    (rtol/atol 1e-5).  Returns (kernel launches of one scoring, max abs
+    error)."""
+    import ocn_tpu_torch.ops.frame as frame
+    from ocn_tpu_torch.ops.membership import (
+        membership_counts, membership_counts_plain)
+
+    cfg = tr.cfg
+    edges = np.asarray(tr.ds.split_edge["train"]["edge"])
+    deg = tr.g.deg.cpu().numpy()[edges[:, 0]]
+    chunk = edges[np.argsort(deg, kind="stable")[:cfg.testbs]]
+    with torch.no_grad(), deterministic():
+        h = tr.encode(state)
+        g, a2 = tr._eval_graphs()
+        before = membership_counts.launches
+        kern = tr._score_batches(state, h, g, chunk, a2, k=cfg.k_small, fold0=1)
+        launched = membership_counts.launches - before
+        frame.membership_counts = membership_counts_plain
+        try:
+            plain = tr._score_batches(state, h, g, chunk, a2, k=cfg.k_small,
+                                      fold0=1)
+        finally:
+            frame.membership_counts = membership_counts
+    if launched == 0:
+        raise AssertionError("eval re-score: membership never launched")
+    np.testing.assert_allclose(kern, plain, rtol=1e-5, atol=1e-5)
+    return launched, float(np.abs(kern - plain).max())
+
+
+def phase_eval_bench(ds, env=None, **overrides):
+    """The port's eval instrument (ocn_tpu_torch/scripts/bench_eval.py) at
+    its defaults on the collab stand-in ``ds`` (bench_eval.eval_dataset()):
+    the three arms on one live Trainer, each a warm and a timed evaluate.
+    Per arm: seconds, edges/s, Hits@K, membership launches by shape, peak
+    GB; valid and test Hits@50 must agree across the arms to 1e-3, the
+    plain version never run on the card, and one chunk of the first arm
+    re-scored with it.  ``env`` (knobs) and ``overrides`` (Config fields)
+    shrink it for the rehearsal; returns (launches, launches by shape)."""
+    from ocn_tpu_torch.ops import membership as M
+    from ocn_tpu_torch.scripts import bench_eval
+
+    t0 = time.perf_counter()
+    with bench_knobs(env or {}):
+        cfg = dataclasses.replace(bench_eval.eval_config(), **overrides)
+    tr, state = bench_eval.setup(cfg, ds, DEVICE)
+    n = bench_eval.n_eval(ds)
+    setup_s = time.perf_counter() - t0
+    arms, shapes = [], collections.Counter()
+    with plain_membership_calls() as plain:
+        for label, ell, dual in bench_eval.ARMS:
+            torch.cuda.reset_peak_memory_stats()
+            M.membership_counts.launches = 0
+            M.membership_counts.shapes.clear()
+            dt, res = bench_eval.run_arm(tr, state, ell, dual)
+            arm_shapes = collections.Counter(M.membership_counts.shapes)
+            arms.append({"arm": label, "seconds": dt, "edges_per_s": n / dt,
+                         "hits": res,
+                         "membership_launches": M.membership_counts.launches,
+                         "membership_shapes": shape_list(arm_shapes),
+                         "peak_mem_eval_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "line": bench_eval.arm_line(label, dt, n, res)})
+            shapes += arm_shapes
+            check_hits(res)
+    # the re-score, which runs the plain version on purpose, reads the
+    # first arm's flags
+    tr.cfg.ell_eval, tr.cfg.dual_k_eval = bench_eval.ARMS[0][1:]
+    rescore_launches, err = eval_rescore(tr, state)
+    launches = sum(a["membership_launches"] for a in arms)
+    emit({"phase": "eval_bench", "seconds": time.perf_counter() - t0,
+          "setup_s": setup_s, "n_eval": n, "ell_tables": bool(tr._use_ell),
+          "testbs": cfg.testbs, "arms": arms,
+          "rescore_launches": rescore_launches, "rescore_max_abs_err": err,
+          "plain_membership_calls": dict(plain)})
+    for a in arms:
+        print(a["line"], flush=True)
+        if a["membership_launches"] == 0:
+            raise AssertionError(f"eval_bench {a['arm']}: membership never launched")
+    if plain["cuda"]:
+        raise AssertionError(f"eval_bench: membership's plain version ran "
+                             f"{plain['cuda']} times on the card")
+    first = arms[0]["hits"]["Hits@50"]
+    for a in arms[1:]:
+        got = a["hits"]["Hits@50"]
+        if max(abs(got[i] - first[i]) for i in (1, 2)) > 1e-3:
+            raise AssertionError(f"eval_bench: valid/test Hits@50 {got[1:]} of "
+                                 f"{a['arm']} against {first[1:]}")
+    return launches, shapes
+
+
+def mrr_dataset_job(scale, cap):
+    """A worker's job: bench_mrr's cut citation2 stand-in and its record."""
+    from ocn_tpu_torch.scripts import bench_mrr
+
+    t0 = time.perf_counter()
+    ds, n_scored = bench_mrr.mrr_dataset(scale, cap)
+    return ds, {"data_s": time.perf_counter() - t0, "scale": scale, "cap": cap,
+                "n_nodes": ds.n_nodes, "n_scored": n_scored}
+
+
+def phase_mrr_bench(ds, data, env=None):
+    """The port's MRR instrument (ocn_tpu_torch/scripts/bench_mrr.py) at
+    its defaults on its dataset ``ds`` (made by mrr_dataset_job; ``data``
+    its record): a warm and a timed evaluate_mrr over 1,000 negatives a
+    source.  Seconds, links/s, valid and test MRR (finite, in (0, 1]),
+    whether the ELL tables ran, membership launches by shape (at least one,
+    the plain version never on the card) and peak GB.  ``env`` shrinks it
+    for the rehearsal; returns (launches, launches by shape)."""
+    from ocn_tpu_torch.ops import membership as M
+    from ocn_tpu_torch.scripts import bench_mrr
+
+    t0 = time.perf_counter()
+    with bench_knobs(env or {}):
+        scale, cap, testbs, adj2_cap = bench_mrr.mrr_knobs()
+    tr, state = bench_mrr.setup(bench_mrr.mrr_config(testbs, adj2_cap), ds, DEVICE)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    M.membership_counts.launches = 0
+    M.membership_counts.shapes.clear()
+    with plain_membership_calls() as plain:
+        dt, out = bench_mrr.run(tr, state)
+    launches = M.membership_counts.launches
+    shapes = collections.Counter(M.membership_counts.shapes)
+    n_scored = data["n_scored"]
+    line = bench_mrr.mrr_line(scale, ds.n_nodes, n_scored, dt, out)
+    emit({"phase": "mrr_bench", "seconds": time.perf_counter() - t0,
+          "setup_s": setup_s, "data": data, "testbs": testbs,
+          "adj2_cap": adj2_cap, "ell_tables": bool(tr._use_ell),
+          "eval_s": dt, "links_per_s": n_scored / dt, "mrr": out,
+          "membership_launches": launches,
+          "membership_shapes": shape_list(shapes),
+          "peak_mem_eval_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "plain_membership_calls": dict(plain)})
+    print(line, flush=True)
+    if not all(math.isfinite(v) and 0.0 < v <= 1.0 for v in out.values()):
+        raise AssertionError(f"mrr_bench: MRR {out}")
+    if launches == 0:
+        raise AssertionError("mrr_bench: membership never launched")
+    if plain["cuda"]:
+        raise AssertionError(f"mrr_bench: membership's plain version ran "
+                             f"{plain['cuda']} times on the card")
+    return launches, shapes
+
+
+# the weak-scaling harness on ranks sharing the card: three of the JAX
+# script's four dps (8 ranks would be 8 CUDA contexts on one card)
+SCALING_DPS = (1, 2, 4)
+
+
+def scaling_rank(info, *args):
+    """One rank of scaling_bench: bench_scaling.rank_body with membership's
+    launches by shape and its plain version's calls by device (on the CPU,
+    the rehearsal, the plain calls stand in for launches)."""
+    from ocn_tpu_torch.ops import membership as M
+    from ocn_tpu_torch.scripts import bench_scaling
+
+    cuda = info.device.type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        M.membership_counts.shapes.clear()
+    else:
+        _count_plain_membership()
+    with plain_membership_calls() as plain:
+        modes = bench_scaling.rank_body(info, *args)
+    return {"rank": info.rank, "backend": info.backend, "device": str(info.device),
+            "modes": modes, "plain_membership_calls": dict(plain),
+            "shapes": dict(M.membership_counts.shapes) if cuda else {},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0}
+
+
+def phase_scaling_bench(dps=SCALING_DPS, per_dev=512, steps=None):
+    """The port's weak-scaling harness (ocn_tpu_torch/scripts/
+    bench_scaling.py) in all three modes at each dp of ``dps``: one launch
+    of dp ranks a dp, every mode in each rank.  Per mode and dp the
+    script's line, ms a step (the slowest rank's), edges/s, efficiency, and
+    each rank's losses and membership launches.  Every loss finite, every
+    rank of every mode launching membership, its plain version never on
+    the card.  Returns (launches over every rank, launches by shape)."""
+    from ocn_tpu_torch.scripts import bench_scaling
+
+    t0 = time.perf_counter()
+    steps = steps or bench_scaling.STEPS
+    by_dp, seconds = {}, {}
+    for dp in dps:
+        t1 = time.perf_counter()
+        by_dp[dp] = bench_scaling.run_dp(
+            dp, per_dev, bench_scaling.MODES, DEVICE, steps, body=scaling_rank,
+            timeout_s=RANK_TIMEOUT_S, deadline_s=RANK_DEADLINE_S)
+        seconds[dp] = time.perf_counter() - t1
+    launches, shapes, modes = 0, collections.Counter(), {}
+    for mode in bench_scaling.MODES:
+        rows = bench_scaling.rows(mode, per_dev, {dp: [r["modes"] for r in ranks]
+                                                  for dp, ranks in by_dp.items()})
+        for row in rows:
+            ranks = by_dp[row["dp"]]
+            row["line"] = bench_scaling.scaling_line(
+                row["dp"], row["batch"], row["ms"], row["edges_per_s"],
+                row["efficiency"])
+            row["losses"] = [r["modes"][mode]["losses"] for r in ranks]
+            row["membership_launches"] = [r["modes"][mode]["membership_launches"]
+                                          for r in ranks]
+            if not all(math.isfinite(x) for ls in row["losses"] for x in ls):
+                raise AssertionError(f"scaling_bench {mode} dp={row['dp']}: "
+                                     f"losses {row['losses']}")
+            if min(row["membership_launches"]) == 0:
+                raise AssertionError(f"scaling_bench {mode} dp={row['dp']}: a "
+                                     f"rank launched no membership kernel")
+            launches += sum(row["membership_launches"])
+        modes[mode] = rows
+    for ranks in by_dp.values():
+        for r in ranks:
+            shapes.update({tuple(k): v for k, v in r["shapes"].items()})
+            if r["plain_membership_calls"].get("cuda"):
+                raise AssertionError(f"scaling_bench: membership's plain version "
+                                     f"ran on the card in rank {r['rank']}")
+    emit({"phase": "scaling_bench", "seconds": time.perf_counter() - t0,
+          "per_dev": per_dev, "steps": steps, "launch_s": seconds,
+          "backend": {dp: ranks[0]["backend"] for dp, ranks in by_dp.items()},
+          "peak_mem_gb": {dp: [r["peak_mem_gb"] for r in ranks]
+                          for dp, ranks in by_dp.items()},
+          "membership_launches": launches, "modes": modes})
+    for mode, rows in modes.items():
+        print(f"S_MODE={mode}", flush=True)
+        for row in rows:
+            print(row["line"], flush=True)
+    return launches, shapes
+
+
 def run_phases(jobs) -> int:
     from ocn_tpu_torch.data.loaders import synthetic_dataset
     from ocn_tpu_torch.ops import membership, row_gather, window_gather
@@ -2415,6 +2711,10 @@ def run_phases(jobs) -> int:
     torch.cuda.empty_cache()
     new["family_slice"], phase_shapes = phase_family_slice(ds)
     shapes = shapes + phase_shapes
+    torch.cuda.empty_cache()
+    # the eval instrument's dataset is this one (collab at 1.0, BFS order)
+    new["eval_bench"], phase_shapes = phase_eval_bench(ds)
+    shapes = shapes + phase_shapes
     del ds
     torch.cuda.empty_cache()
     # the bench program makes its own dataset, as python -m runs it
@@ -2426,6 +2726,8 @@ def run_phases(jobs) -> int:
     new["accuracy_slice"], phase_shapes = phase_accuracy_slice()
     shapes = shapes + phase_shapes
     torch.cuda.empty_cache()
+    new["scaling_bench"], phase_shapes = phase_scaling_bench()
+    shapes = shapes + phase_shapes
     # bench.py's ppa and citation2 shapes and the spd preset, each on a
     # dataset of its own, made here
     ds, data = made_dataset(jobs["ppa"])
@@ -2444,20 +2746,21 @@ def run_phases(jobs) -> int:
         shapes = shapes + phase_shapes
         torch.cuda.empty_cache()
     del ds
+    ds, data = made_dataset(jobs["mrr"])
+    new["mrr_bench"], phase_shapes = phase_mrr_bench(ds, data)
+    shapes = shapes + phase_shapes
+    del ds
+    torch.cuda.empty_cache()
     m_shapes = phase_membership_shapes(shapes)
     g_launches, g_variants = phase_gather_bench()
 
     m_err, m_timing = kern["membership"]
     w_err, w_timings = kern["window"]
     emit({"kernels": [
-        kernel_entry("membership_counts", membership, membership.REPLACES,
-                     m_launches + bench_launches + cli_launches
-                     + new["accuracy_slice"], m_err, m_timing,
-                     launches_slice=m_launches,
-                     launches_window_slice=w_train["membership"] + w_eval["membership"],
-                     launches_bench_slice=b_launches,
-                     **{f"launches_{name}": n for name, n in new.items()},
-                     model_shapes=m_shapes),
+        membership_entry(m_err, m_timing, {
+            "slice": m_launches,
+            "window_slice": w_train["membership"] + w_eval["membership"],
+            "bench_slice": b_launches, **new}, m_shapes),
         kernel_entry("window_rows", window_gather, window_gather.REPLACES,
                      w_train["window"] + w_eval["window"] + bench_window,
                      w_err, w_timings[0],

@@ -402,8 +402,8 @@ class _Shards:
     degrees only when the ELL tables answer)."""
 
     def __init__(self, tr, g: Graph, adj2: Graph, adj3: Optional[Graph],
-                 use_ell: bool):
-        mesh = tr.mesh
+                 use_ell: bool, mesh=None):
+        mesh = mesh if mesh is not None else tr.mesh
         ndev, me, dev = mesh.dp, mesh.dp_rank, tr.device
         self.mesh, self.n_nodes, self.use_ell = mesh, g.n_nodes, use_ell
         bp = partition_graph_boundary(g, ndev)
@@ -426,7 +426,8 @@ class _Shards:
             bval=put(with_pad(bp.bval[me], 0.0)))
         self.pad_i, self.pad_b = bp.icol.shape[1], bp.bpos.shape[1]
         self.graph = LocalGraph(mesh=mesh, rows_per=rows_per, n_nodes=g.n_nodes, **lg)
-        x = tr.x.numpy() if tr.x.dtype != torch.bfloat16 else tr.x.float().numpy()
+        x = tr.x.cpu()
+        x = (x if x.dtype != torch.bfloat16 else x.float()).numpy()
         self.x = put(_pad_rows(x, ndev, rows_per)[me], tr.x.dtype)
         self.r0 = me * rows_per
         self.layout = boundary_entry_layout(g, ndev)
@@ -436,7 +437,8 @@ class _Shards:
                 self.tables.append(None)
                 continue
             if use_ell:
-                deg = _pad_rows(gg.deg.numpy().astype(np.int32), ndev, rows_per)[me]
+                deg = _pad_rows(gg.deg.cpu().numpy().astype(np.int32), ndev,
+                                rows_per)[me]
                 one = torch.zeros(1, dtype=torch.int64, device=dev)
                 arrs = (one, one, torch.zeros(1, device=dev), put(deg, torch.int64))
                 if i == 0:
@@ -486,11 +488,14 @@ def rank_generator(gen: Optional[torch.Generator], rank: int, device):
 class ShardedGraphStep:
     """The node-sharded train step of one rank (port of
     make_sharded_graph_train_step): ``step(state, pos, neg, aux, gen,
-    inv_p, inv_n)`` takes Trainer.prepare_batch's outputs."""
+    inv_p, inv_n)`` takes Trainer.prepare_batch's outputs.  ``mesh``
+    defaults to the Trainer's own; a single-device Trainer and a mesh given
+    here run the bare step over that mesh, with the host's mask positions
+    as ``aux``, as the JAX factory takes a Trainer and a mesh."""
 
-    def __init__(self, tr):
+    def __init__(self, tr, mesh=None):
         cfg = tr.cfg
-        mesh = tr.mesh
+        mesh = mesh if mesh is not None else tr.mesh
         self.tr, self.mesh = tr, mesh
         ndev = mesh.dp
         c = tr._chunk()
@@ -500,7 +505,7 @@ class ShardedGraphStep:
         if tr._split is not None and any(n % ndev for n in tr._split):
             raise ValueError("the sharded dual-K split needs per-side chunk "
                              "counts divisible by dp (Trainer._split_plan)")
-        self.sh = _Shards(tr, tr.g, tr.adj2, tr.adj3, bool(tr._use_ell))
+        self.sh = _Shards(tr, tr.g, tr.adj2, tr.adj3, bool(tr._use_ell), mesh)
         self.mask_cap = 2 * cfg.batch_size
 
     def route(self, aux):

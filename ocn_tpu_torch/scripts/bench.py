@@ -51,6 +51,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def bench_device() -> str:
+    """The device of the bench programs: the card, or the CPU with
+    OCN_BENCH_PLATFORM=cpu."""
+    return "cpu" if os.environ.get("OCN_BENCH_PLATFORM") == "cpu" else "cuda"
+
+
 def chip_anchors(device="cuda", n=235_868, b=4096, mm=4096, gather_reps=20,
                  matmul_reps=10):
     """Speed anchors of the device, taken in the same run as the program:
@@ -234,7 +240,7 @@ def measure(defaults: bool = False, device="cuda"):
 def main(anchors=None) -> dict:
     """The bench program: prints its one JSON line and returns it as a
     dict.  ``anchors`` are keyword arguments of chip_anchors (sizes)."""
-    device = "cpu" if os.environ.get("OCN_BENCH_PLATFORM") == "cpu" else "cuda"
+    device = bench_device()
     metric, eps = measure(device=device)
     dataset = os.environ.get("OCN_BENCH_DATASET", "collab")
     base = DATASET_BASELINES.get(dataset)

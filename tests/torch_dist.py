@@ -251,3 +251,28 @@ def mesh_batches(tr, n=2):
     return [(tr.train_edges[:, perm[i * bs:(i + 1) * bs]],
              neg[:, perm[i * bs:(i + 1) * bs]], perm[i * bs:(i + 1) * bs])
             for i in range(n)]
+
+
+# ------------------------------------------------------ weak-scaling harness
+def scaling_case(info, dp, per_dev, overrides, init):
+    """The first step's loss of each mode of ocn_tpu_torch/scripts/
+    bench_scaling.py at ``dp`` ranks: the script's Config with
+    ``overrides``, its inputs and its step (make_step), from ``init`` ({mode:
+    state dicts})."""
+    import dataclasses
+
+    from ocn_tpu_torch.scripts import bench_scaling as S
+
+    torch.set_num_threads(1)
+    ds = S.scaling_dataset()
+    out = {}
+    for mode in S.MODES:
+        cfg = dataclasses.replace(S.scaling_config(mode, dp, per_dev), **overrides)
+        tr = Trainer(cfg, ds, device="cpu")
+        step = S.make_step(tr, mode, dp, tr.device,
+                           *S.scaling_inputs(ds, cfg.batch_size, tr.edge2pos))
+        state = tr.init_state(0)
+        state.encoder.load_state_dict(init[mode]["encoder"])
+        state.predictor.load_state_dict(init[mode]["predictor"])
+        out[mode] = float(step(state, torch.Generator().manual_seed(0))[1])
+    return out
