@@ -16,7 +16,12 @@ and the script exits nonzero:
              the per-call time of the wrapper (CUDA events over 200 calls),
              ``device_ms`` the kernel's own time on the card (CUDA events
              around 50 calls queued behind a spin kernel, so that the card
-             runs them back to back, divided by the calls).
+             runs them back to back, divided by the calls).  The sorted
+             segment sum (csrc/segment_sum.cu) is held against its plain
+             version in float64 (rtol 1e-5 of the terms' magnitudes in
+             float32, 1e-2 with bfloat16 rows) on ragged and empty segments,
+             hub rows of 12,000 and 400,000 entries and H from 1 to 256, two
+             calls bit-identical; then timed at the encoder SpMM's shape.
 3. reference - the slices at a tiny size on the card against the same
              slices on the CPU (plain versions), same initial weights, one
              case at a time (reference_cases, run_reference_case): the plain
@@ -66,9 +71,22 @@ and the script exits nonzero:
              Membership's launches by (rows, Kq, Ks) are printed
              (``membership_shapes``), then one further batch is stepped
              twice, timed and under torch.profiler: the card's busy share
-             of the step and its ten kernels with the most device time
-             (``step_profile``).
-6b. mesh_slice - bench_slice's program (BENCH_PATH, the same batches) at
+             of the step, its ten kernels with the most device time and the
+             device ms of the segment sum and of PyTorch's index and
+             scatter kernels (``step_profile``).
+6a. segment_sum_shapes - the segment-sum kernel on the inputs bench_slice
+             gave it, one call a (site, entries, segments, columns): held
+             against its plain version in float64 and timed beside its
+             bound, its plain version and index_add_ of the same products.
+6b. determinism - one seed, one result: bench_slice's program (three steps
+             and one evaluate), arm 1 of the accuracy study (all 24 epochs
+             through run_one) and one family_slice cn3 step, each run twice
+             from seed 0 in fresh objects: every loss, parameter, buffer,
+             Adam moment and eval score bit for bit equal (torch.equal of
+             the bits), with no global switch.  A program that differs is
+             run twice more with a checksum of every aten op's output, which
+             names the first op apart, and the phase fails.
+6c. mesh_slice - bench_slice's program (BENCH_PATH, the same batches) at
              dp_devices 2 x tp_devices 2: four ranks (parallel/launch.py)
              sharing the card over gloo (NCCL takes one rank a card; the
              rule is fixed before launch and printed), each scoring its dp
@@ -77,7 +95,7 @@ and the script exits nonzero:
              held against bench_slice's (step 1 rtol 1e-4, all 1e-3); per
              rank the step ms, peak GB, membership launches and the
              collectives' calls and bytes by op.
-6c. node_sharded_slice - the same program with graph_sharding "node" on
+6d. node_sharded_slice - the same program with graph_sharding "node" on
              two ranks, the eval splits cut to EVAL_CUT rows: graph shards,
              ELL shards, the dual-K split with the round-robin interleave,
              sharded eval.  Each rank's graph bytes on the card against the
@@ -203,8 +221,8 @@ and the script exits nonzero:
 The datasets of phases 13-15b are made in three worker processes while the
 card runs phases 1-12d; their lines give the workers' seconds and the wait.
 Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits
-(or mrr), its membership launches (per step, in eval, by shape) and peak
-device memory (train and eval apart where both run); the phases on new
+(or mrr), its membership launches (per step, in eval, by shape), its
+segment-sum launches (per step, in eval) and peak device memory (train and eval apart where both run); the phases on new
 datasets also the seconds of their data, BFS relabel and trainer set-up.  Phase 2 also holds the row
 gather, the sorted-block gather and the window gather at bfloat16 against
 their plain versions, exactly, at the instrument's shapes and at ragged
@@ -344,13 +362,13 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def phase_build():
-    from ocn_tpu_torch.ops import membership, row_gather, window_gather
+    from ocn_tpu_torch.ops import membership, row_gather, segment_sum, window_gather
     from ocn_tpu_torch.utils import native, toolchain
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         kernels = [pool.submit(m.build)
-                   for m in (membership, window_gather, row_gather)]
+                   for m in (membership, window_gather, row_gather, segment_sum)]
         host = pool.submit(toolchain.build_graphcore)
         kernel_libs = [k.result() for k in kernels]
         host_lib = host.result()
@@ -682,6 +700,168 @@ def window_bf16_checks(gen, s):
     return err, window_timing(y, pos0, k2)
 
 
+def segment_sum_case(gen, lens, n_src, h, idx_dtype=None, scaled=False,
+                     dtype=torch.float32, lead=0, tail=0, planes=False):
+    """Inputs of one segment sum on the card: segments of ``lens`` entries
+    after ``lead`` entries of none and before ``tail`` more; rows of an
+    (n_src, h) table through random int32/int64 ``idx`` (None: one row an
+    entry), scales if ``scaled``; ``planes`` reads the table as the
+    transposed view of (h, rows) planes, as the frames' column sums do."""
+    lens = torch.as_tensor(lens, dtype=torch.int64, device="cuda")
+    off = lead + torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    q = int(off[-1]) + tail
+    idx = (None if idx_dtype is None else torch.randint(
+        0, n_src, (q,), generator=gen, device="cuda", dtype=idx_dtype))
+    rows = n_src if idx is not None else q
+    src = (torch.randn((h, rows), generator=gen, device="cuda").T if planes else
+           torch.randn((rows, h), generator=gen, device="cuda")).to(dtype)
+    scale = torch.randn(q, generator=gen, device="cuda") if scaled else None
+    return src, off, idx, scale
+
+
+def ragged_lens(gen, nseg, hub=0, hub_at=None):
+    """nseg segment lengths in 0..8, a third of them empty, and one of
+    ``hub`` entries."""
+    lens = torch.randint(1, 9, (nseg,), generator=gen, device="cuda")
+    lens = lens * (torch.rand(nseg, generator=gen, device="cuda") > 0.33)
+    if hub:
+        lens[nseg // 2 if hub_at is None else hub_at] = hub
+    return lens
+
+
+def segment_sum_check(label, src, off, idx, scale):
+    """The kernel against its plain version in float64 on the same inputs:
+    |kernel - plain| <= rtol * (the sum of the terms' magnitudes), rtol 1e-5
+    for float32 rows and 1e-2 for bfloat16 ones; two calls bit-identical.
+    Returns the largest absolute error."""
+    from ocn_tpu_torch.ops import segment_sum as SS
+
+    got = SS.segment_sum_raw(src, off, idx, scale)
+    again = SS.segment_sum_raw(src, off, idx, scale)
+    torch.cuda.synchronize()
+    if not torch.equal(bits(got), bits(again)):
+        raise AssertionError(f"segment_sum {label}: two calls differ")
+    sc64 = None if scale is None else scale.double()
+    want = SS.segment_sum_plain(src.double(), off, idx, sc64)
+    mag = SS.segment_sum_plain(src.double().abs(), off, idx,
+                               None if sc64 is None else sc64.abs())
+    rtol = 1e-2 if src.dtype == torch.bfloat16 else 1e-5
+    err = (got.double() - want).abs()
+    if not bool((err <= rtol * mag + 1e-30).all()):
+        raise AssertionError(f"segment_sum {label}: off by {err.max().item()}")
+    return err.max().item()
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits as integers of its width: equal bits, equal tensors
+    (NaN included)."""
+    if not t.is_floating_point():
+        return t
+    return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def segment_sum_checks(gen):
+    """segment_sum_raw against its plain version (segment_sum_check): ragged
+    and empty segments, H in {1, 5, 16, 64, 256}, with and without idx and
+    scale, int32 and int64 idx, segments of one entry, a hub row of 12,000
+    entries, one of 400,000 (the frames' sentinel lanes), entries outside
+    every segment, trailing empty segments (the column sums' ranks), strided
+    planes, bfloat16 rows; subnormal sums flush to zero; then timed at the
+    encoder SpMM's shape."""
+    f32, bf16, i32, i64 = torch.float32, torch.bfloat16, torch.int32, torch.int64
+    ones = torch.ones(20000, dtype=torch.int64)
+    cases = [
+        ("ragged, H=1, rows", ragged_lens(gen, 5000), 0, 1, None, False, f32, {}),
+        ("ragged, H=64, int64 idx, scale", ragged_lens(gen, 5000), 3000, 64, i64,
+         True, f32, {}),
+        ("ragged, H=256, int32 idx, scale", ragged_lens(gen, 3000), 3000, 256, i32,
+         True, f32, {}),
+        ("one entry a segment, H=64", ones, 5000, 64, i32, False, f32, {}),
+        ("hub of 12,000, H=256", ragged_lens(gen, 2000, 12000), 3000, 256, i32,
+         True, f32, {}),
+        ("hub of 12,000, H=1", ragged_lens(gen, 2000, 12000), 3000, 1, i64, True,
+         f32, {}),
+        ("sentinel of 400,000, H=5 planes", ragged_lens(gen, 4000, 400000, -1),
+         500000, 5, i64, False, f32, {"planes": True}),
+        ("sentinel of 400,000, H=256", ragged_lens(gen, 1000, 400000, -1), 3000,
+         256, i32, False, f32, {}),
+        ("outside entries, H=16", ragged_lens(gen, 900), 700, 16, i64, True, f32,
+         {"lead": 5, "tail": 11}),
+        ("trailing empties, H=3", torch.cat([ragged_lens(gen, 1000),
+                                            torch.zeros(30000, dtype=torch.int64,
+                                                        device="cuda")]),
+         4000, 3, i64, False, f32, {}),
+        ("bf16 rows, H=64, scale", ragged_lens(gen, 3000), 3000, 64, i32, True,
+         bf16, {}),
+        ("bf16 rows and out, H=256, hub", ragged_lens(gen, 2000, 12000), 0, 256,
+         None, False, bf16, {}),
+    ]
+    rows, max_err = [], 0.0
+    for label, lens, n_src, h, idx_dtype, scaled, dtype, kw in cases:
+        src, off, idx, scale = segment_sum_case(gen, lens, n_src, h, idx_dtype,
+                                                scaled, dtype, **kw)
+        err = segment_sum_check(label, src, off, idx, scale)
+        if dtype == f32:
+            max_err = max(max_err, err)
+        rows.append({"case": label, "entries": int(off[-1]), "segments": len(lens),
+                     "h": h, "max_abs_err": err, "bit_identical": True})
+    # subnormal terms and sums flush to zero, as index_add_'s atomics and
+    # XLA's sums do (a column sum of underflowing probabilities is 0)
+    from ocn_tpu_torch.ops import segment_sum as SS
+
+    tiny = torch.tensor([3e-39, 4e-39, 2e-30, 3e-30], device="cuda")
+    exact("segment_sum subnormals", SS.segment_sum_raw(tiny, torch.tensor(
+        [0, 2, 4], device="cuda")), torch.stack([tiny[0] * 0, tiny[2] + tiny[3]]))
+    rows.append({"case": "subnormal sums flush to zero", "exact": True})
+    return rows, max_err, segment_sum_timing(*spmm_shape_inputs(gen), "SpMM")
+
+
+def spmm_shape_inputs(gen, n=235868, nnz=1324714, h=256):
+    """The encoder SpMM's segment sum on a random graph of the collab
+    stand-in's size: rows sorted, random columns (int32), float32 values."""
+    row = torch.sort(torch.randint(0, n, (nnz,), generator=gen, device="cuda")).values
+    from ocn_tpu_torch.ops import segment_sum as SS
+
+    off = SS.sorted_offsets(row, n)
+    col = torch.randint(0, n, (nnz,), generator=gen, device="cuda", dtype=torch.int32)
+    x = torch.randn((n, h), generator=gen, device="cuda")
+    val = torch.rand(nnz, generator=gen, device="cuda")
+    return x, off, col, val
+
+
+def segment_sum_timing(src, off, idx, scale, label):
+    """segment_sum_raw on these inputs: per call, on the card alone, its
+    plain version, index_add_ of the same products into the same rows (the
+    library call, the products formed outside the timing), and the bound:
+    each distinct row read once, the indices, scales and offsets once, the
+    float32 output written once."""
+    from ocn_tpu_torch.ops import segment_sum as SS
+
+    s2 = src[:, None] if src.dim() == 1 else src
+    q = idx.numel() if idx is not None else s2.shape[0]
+    nseg, h = off.numel() - 1, s2.shape[1]
+    seg = SS.entry_segments(off, q)
+    msg = (s2 if idx is None else s2[idx.long()]).float()
+    if scale is not None:
+        msg = scale[:, None] * msg
+    out = torch.zeros(nseg + 1, h, device="cuda")
+    used = idx[int(off[0]):int(off[-1])] if idx is not None else None
+    rows_read = distinct(used) if used is not None else int(off[-1] - off[0])
+    nbytes = (rows_read * h * s2.element_size() + 4 * nseg * h + 8 * (nseg + 1)
+              + q * ((idx.element_size() if idx is not None else 0)
+                     + (4 if scale is not None else 0)))
+    timing = {"shape": [q, nseg, h], "site": label,
+              "ms": cuda_time_ms(lambda: SS.segment_sum_raw(src, off, idx, scale)),
+              **device_ms(lambda: SS.segment_sum_raw(src, off, idx, scale)),
+              "plain_ms": cuda_time_ms(
+                  lambda: SS.segment_sum_plain(src, off, idx, scale), iters=20),
+              "library_ms": cuda_time_ms(lambda: out.index_add_(0, seg, msg), iters=20),
+              **bound(nbytes, 2 * q * h)}
+    del msg, out, seg
+    return timing
+
+
 def phase_kernels():
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -695,15 +875,18 @@ def phase_kernels():
     wb_err, wb_timing = window_bf16_checks(gen, s)
     del x
     torch.cuda.empty_cache()
+    s_rows, s_err, s_timing = segment_sum_checks(gen)
+    torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "checks": m_rows, "membership_timing": m_timing,
           "window_checks": w_rows, "window_timing": w_timings,
           "row_checks": r_rows, "row_timing": r_timing,
           "sorted_block_checks": b_rows, "sorted_block_timing": b_timing,
-          "window_bf16_timing": wb_timing})
+          "window_bf16_timing": wb_timing, "segment_sum_checks": s_rows,
+          "segment_sum_timing": s_timing})
     return {"membership": (m_err, m_timing), "window": (w_err, w_timings),
             "row": (r_err, r_timing), "sorted_block": (b_err, b_timing),
-            "window_bf16": (wb_err, wb_timing)}
+            "window_bf16": (wb_err, wb_timing), "segment_sum": (s_err, s_timing)}
 
 
 REFERENCE_DATA = ("Cora", "ppa", "citation2")
@@ -1157,6 +1340,233 @@ def phase_bench_slice(ds, **overrides):
             + evals["membership_launches_eval"]), shapes, train["losses"]
 
 
+@contextlib.contextmanager
+def captured_segment_sums():
+    """The first segment-sum launch of each (site, entries, segments,
+    columns) in a region, its inputs cloned, for timing the kernel at the
+    shapes the main path gives it.  The site is the first caller outside
+    ops/segment_sum.py and torch's autograd, as file:function."""
+    from ocn_tpu_torch.ops import segment_sum as SS
+
+    launch, plain = SS._launch, SS.segment_sum_plain
+    seen = {}
+
+    def capturing(fn):
+        def run(src, off, idx=None, scale=None):
+            f = sys._getframe(1)
+            while f is not None and (f.f_code.co_filename.endswith("segment_sum.py")
+                                     or f"{os.sep}torch{os.sep}" in f.f_code.co_filename):
+                f = f.f_back
+            site = (f"{os.path.basename(f.f_code.co_filename)}:{f.f_code.co_name}"
+                    if f is not None else "?")
+            key = (site, idx.numel() if idx is not None else src.shape[0],
+                   off.numel() - 1, src.shape[1] if src.dim() == 2 else 1)
+            if key not in seen:
+                seen[key] = tuple(None if t is None else t.detach().clone()
+                                  for t in (src, off, idx, scale))
+            seen[("launches",) + key] = seen.get(("launches",) + key, 0) + 1
+            return fn(src, off, idx, scale)
+        return run
+
+    # the card's calls reach _launch, the CPU's (a rehearsal) the plain version
+    SS._launch, SS.segment_sum_plain = capturing(launch), capturing(plain)
+    try:
+        yield seen
+    finally:
+        SS._launch, SS.segment_sum_plain = launch, plain
+
+
+def phase_segment_sum_shapes(calls):
+    """The segment-sum kernel on the inputs that bench_slice gave it (its
+    three steps, evaluate, re-scored group and profiled step), one call a
+    (site, entries, segments, columns): held against its plain version in
+    float64 (segment_sum_check) and timed (segment_sum_timing), with the
+    launches of that key in the phase."""
+    t0 = time.perf_counter()
+    timings, max_err = [], 0.0
+    for key, args in sorted((k, v) for k, v in calls.items() if k[0] != "launches"):
+        if DEVICE == "cuda":
+            err = segment_sum_check(f"{key}", *args)
+            timing = segment_sum_timing(*args, key[0])
+        else:
+            err, timing = 0.0, {"site": key[0], "shape": list(key[1:])}
+        max_err = max(max_err, err)
+        timings.append({**timing, "max_abs_err": err,
+                        "launches": calls[("launches",) + key]})
+    calls.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "segment_sum_shapes", "seconds": time.perf_counter() - t0,
+          "timings": timings})
+    return timings, max_err
+
+
+@contextlib.contextmanager
+def recorded_program():
+    """Each training step's loss, the last stepped state and every eval
+    split's scores, of whatever Trainers run in a region (Trainer.train_step
+    and Trainer._score_split recorded at class level)."""
+    from ocn_tpu_torch.train.loop import Trainer
+
+    rec = {"losses": [], "scores": [], "state": None}
+    step, score = Trainer.train_step, Trainer._score_split
+
+    def train_step(self, state, *args, **kw):
+        state, loss = step(self, state, *args, **kw)
+        rec["losses"].append(loss.detach().clone())
+        rec["state"] = state
+        return state, loss
+
+    def score_split(self, *args, **kw):
+        out = score(self, *args, **kw)
+        rec["scores"].append(np.array(out, copy=True))
+        return out
+
+    Trainer.train_step, Trainer._score_split = train_step, score_split
+    try:
+        yield rec
+    finally:
+        Trainer.train_step, Trainer._score_split = step, score
+
+
+def program_tensors(rec, extra):
+    """A recorded program as named CPU tensors: each step's loss, every
+    parameter, buffer and Adam moment of the last state, each eval split's
+    scores, and ``extra``."""
+    out = {f"loss.{i}": t.cpu() for i, t in enumerate(rec["losses"])}
+    if rec["state"] is not None:
+        out.update({k: v.detach().cpu().clone()
+                    for k, v in _state_tensors(rec["state"]).items()})
+    out.update({f"scores.{j}": torch.as_tensor(a) for j, a in enumerate(rec["scores"])})
+    return {**out, **extra}
+
+
+def first_mismatch(a, b):
+    """The first name whose tensors differ in a bit (or in shape or type),
+    with the largest difference; None when every tensor is equal."""
+    if a.keys() != b.keys():
+        return {"name": "keys", "only_one": sorted(set(a) ^ set(b))}
+    for name, x in a.items():
+        y = b[name]
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return {"name": name, "shapes": [list(x.shape), list(y.shape)]}
+        if not torch.equal(bits(x), bits(y)):
+            return {"name": name,
+                    "max_abs_diff": (x.double() - y.double()).abs().max().item()}
+    return None
+
+
+def op_checksums(prog):
+    """Run ``prog`` under a dispatch mode that keeps, for every floating
+    point output of every aten op, the op's name and the float64 sum of the
+    output, in the order the ops ran (forward and backward)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    names, sums = [], []
+
+    class Checksums(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.is_floating_point():
+                    names.append(str(func))
+                    sums.append(t.detach().double().sum())
+            return out
+
+    with recorded_program(), Checksums():
+        prog()
+    return names, torch.stack(sums).cpu() if sums else torch.zeros(0)
+
+
+def first_op_apart(prog):
+    """The bisection of a mismatch: ``prog`` twice under op_checksums; the
+    first op whose output differs while every earlier one agreed (its
+    inputs then agree too, so it is itself not reproducible)."""
+    (n1, s1), (n2, s2) = op_checksums(prog), op_checksums(prog)
+    for i, (a, b) in enumerate(zip(n1, n2)):
+        if a != b:
+            return {"index": i, "op": a, "other_run_op": b}
+        if not torch.equal(bits(s1[i]), bits(s2[i])):
+            return {"index": i, "op": a, "ops_before": i,
+                    "previous_ops": n1[max(0, i - 5):i]}
+    return {"ops": len(n1), "other_run_ops": len(n2), "apart": None}
+
+
+def determinism_programs(ds, accuracy_scale, accuracy_epochs, overrides):
+    """The three programs of phase_determinism, each a fresh set-up from
+    seed 0 returning its extra tensors."""
+    from ocn_tpu_torch.scripts import accuracy_parity
+    from ocn_tpu_torch.train.loop import Trainer
+
+    def steps(cfg, dsx, nsteps, evaluate_after):
+        tr = Trainer(cfg, dsx, device=DEVICE)
+        state = tr.init_state(0)
+        tr._refresh_ell(np.random.default_rng(1))
+        pos, neg, batches = step_batches(tr, dsx, nsteps)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        state, _, _ = run_steps(tr, state, pos, neg, batches, gen)
+        if evaluate_after:
+            check_hits(tr.evaluate(state))
+        return {}
+
+    def bench():
+        return steps(slice_config(**{**BENCH_PATH, **overrides}), ds, 3, True)
+
+    def accuracy():
+        rec = accuracy_parity.run_one(
+            ACCURACY_ARM["graph"], ACCURACY_ARM["variant"], 0, accuracy_epochs,
+            ACCURACY_ARM["eval_every"], ACCURACY_ARM["predictor"], accuracy_scale,
+            device=DEVICE)
+        return {"best_test_hits50": torch.tensor(rec["best"]["Hits@50"][2],
+                                                 dtype=torch.float64),
+                "epoch_losses": torch.tensor(rec["losses"], dtype=torch.float64)}
+
+    def cn3():
+        cfg = slice_config(**{**FAMILY_PATH, "predictor": "cn3", **overrides})
+        return steps(cfg, family_cut(ds, cfg.batch_size, 1), 1, False)
+
+    return {"bench_slice": bench, "accuracy_arm1": accuracy, "family_cn3": cn3}
+
+
+def phase_determinism(ds, accuracy_scale=None, accuracy_epochs=None, **overrides):
+    """One seed, one result: bench_slice's program (three steps and one
+    evaluate), arm 1 of the accuracy study through run_one (all its
+    epochs) and one step of family_slice's cn3, each run twice from seed 0
+    in fresh objects.  Every step's loss, every parameter, buffer and Adam
+    moment after the last step, every eval split's scores (and for arm 1
+    its epoch losses and best test Hits@50) must be equal bit for bit,
+    with no tolerance and no global switch.  A program that differs is run
+    twice more under op_checksums to name the first op whose output
+    differs (first_op_apart); then the phase fails."""
+    t0 = time.perf_counter()
+    scale = ACCURACY_ARM["scale"] if accuracy_scale is None else accuracy_scale
+    epochs = ACCURACY_ARM["epochs"] if accuracy_epochs is None else accuracy_epochs
+    out = {}
+    for name, prog in determinism_programs(ds, scale, epochs, overrides).items():
+        runs = []
+        t1 = time.perf_counter()
+        for _ in range(2):
+            with recorded_program() as rec:
+                extra = prog()
+            runs.append(program_tensors(rec, extra))
+            torch.cuda.empty_cache()
+        miss = first_mismatch(*runs)
+        out[name] = {"seconds": time.perf_counter() - t1, "tensors": len(runs[0]),
+                     "losses": sum(k.startswith("loss.") for k in runs[0]),
+                     "score_splits": sum(k.startswith("scores.") for k in runs[0]),
+                     "first_mismatch": miss}
+        if miss is not None:
+            out[name]["first_op_apart"] = first_op_apart(prog)
+        if "best_test_hits50" in runs[0]:
+            out[name]["best_test_hits50"] = runs[0]["best_test_hits50"].item()
+        del runs
+    emit({"phase": "determinism", "seconds": time.perf_counter() - t0, **out})
+    failed = [name for name, rec in out.items() if rec["first_mismatch"] is not None]
+    if failed:
+        raise AssertionError(f"determinism: {failed} differ between two runs of seed 0")
+    return out
+
+
 # arm 1 of the accuracy study (ocn_tpu_torch/scripts/accuracy_parity.py):
 # the production default on the sbm learnability graph
 ACCURACY_ARM = dict(graph="sbm", variant="capped_ell", predictor="cn5",
@@ -1476,16 +1886,20 @@ def shape_list(counter):
 
 def drive_steps(tr, state, pos, neg, batches, gen):
     """Timed training steps one at a time, membership launches counted per
-    step and by (rows, Kq, Ks); returns (state, record, shapes)."""
+    step and by (rows, Kq, Ks), segment-sum launches per step; returns
+    (state, record, shapes)."""
     from ocn_tpu_torch.ops.membership import membership_counts
+    from ocn_tpu_torch.ops.segment_sum import segment_sum_raw
 
     torch.cuda.reset_peak_memory_stats()
     membership_counts.shapes.clear()
-    step_ms, losses, per_step = [], [], []
+    step_ms, losses, per_step, seg_per_step = [], [], [], []
     for idx in batches:
         membership_counts.launches = 0
+        seg0 = segment_sum_raw.launches
         state, ms, loss = run_steps(tr, state, pos, neg, [idx], gen)
         per_step.append(membership_counts.launches)
+        seg_per_step.append(segment_sum_raw.launches - seg0)
         step_ms += ms
         losses += loss
     shapes = collections.Counter(membership_counts.shapes)
@@ -1493,6 +1907,7 @@ def drive_steps(tr, state, pos, neg, batches, gen):
         "step_ms": step_ms,
         "train_edges_per_s": [2e3 * tr.cfg.batch_size / ms for ms in step_ms],
         "losses": losses, "membership_launches_per_step": per_step,
+        "segment_sum_launches_per_step": seg_per_step,
         "membership_shapes_train": shape_list(shapes),
         "peak_mem_train_gb": torch.cuda.max_memory_allocated() / 1e9}, shapes
 
@@ -1502,10 +1917,12 @@ def timed_eval(tr, state):
     membership launches counted and its peak device memory apart from the
     training's; returns (record, shapes)."""
     from ocn_tpu_torch.ops.membership import membership_counts
+    from ocn_tpu_torch.ops.segment_sum import segment_sum_raw
 
     torch.cuda.reset_peak_memory_stats()
     membership_counts.launches = 0
     membership_counts.shapes.clear()
+    seg0 = segment_sum_raw.launches
     te = time.perf_counter()
     results = evaluate(tr, state)
     torch.cuda.synchronize()
@@ -1515,6 +1932,7 @@ def timed_eval(tr, state):
     return {"eval_s": t_eval,
             ("mrr" if tr.cfg.dataset == "citation2" else "hits"): results,
             "membership_launches_eval": membership_counts.launches,
+            "segment_sum_launches_eval": segment_sum_raw.launches - seg0,
             "membership_shapes_eval": shape_list(shapes),
             "peak_mem_eval_gb": torch.cuda.max_memory_allocated() / 1e9}, shapes
 
@@ -2334,6 +2752,31 @@ def membership_entry(err, timing, by_phase, shapes):
                         model_shapes=shapes)
 
 
+# the phases whose segment-sum launches make up the kernel's "launches": the
+# main path and the entry points that users run it through, in this process
+# (the rank phases' launches happen in their ranks)
+SEGMENT_SUM_MAIN = ("slice", "bench_slice", "bench_program", "cli_slice",
+                    "accuracy_slice", "eval_bench", "mrr_bench")
+
+
+def segment_sum_entry(err, timing, by_phase, shapes, shapes_err):
+    """The segment sum's entry of the kernels line: its launches by phase
+    (each phase read with the count set to 0 just before it), their sum over
+    SEGMENT_SUM_MAIN as ``launches``, the bench_slice sites timed as
+    ``model_shapes``; it fails if a main phase never launched it."""
+    from ocn_tpu_torch.ops import segment_sum
+
+    idle = [k for k in SEGMENT_SUM_MAIN if not by_phase.get(k)]
+    if idle:
+        raise AssertionError(f"segment_sum never launched in {idle}")
+    return kernel_entry(
+        "segment_sum", segment_sum, segment_sum.REPLACES,
+        sum(by_phase[k] for k in SEGMENT_SUM_MAIN), max(err, shapes_err), timing,
+        replaces_what="XLA's jax.ops.segment_sum(indices_are_sorted=True), "
+                      "not a Pallas kernel",
+        **{f"launches_{k}": n for k, n in by_phase.items()}, model_shapes=shapes)
+
+
 def kernel_entry(name, module, replaces, launches, err, timing, **extra):
     """One entry of the {"kernels": [...]} line."""
     return {"name": name, "route": "cuda", "source": module.SOURCE,
@@ -2672,23 +3115,37 @@ def phase_scaling_bench(dps=SCALING_DPS, per_dev=512, steps=None):
 
 def run_phases(jobs) -> int:
     from ocn_tpu_torch.data.loaders import synthetic_dataset
-    from ocn_tpu_torch.ops import membership, row_gather, window_gather
+    from ocn_tpu_torch.ops import membership, row_gather, segment_sum, window_gather
+
+    seg = {}
+
+    def counted(name, phase, *args, **kw):
+        """phase(*args, **kw), its segment-sum launches in this process
+        kept as seg[name]: the count set to 0 just before, read just after."""
+        segment_sum.segment_sum_raw.launches = 0
+        out = phase(*args, **kw)
+        seg[name] = segment_sum.segment_sum_raw.launches
+        return out
 
     smi = phase_build()
     kern = phase_kernels()
     phase_reference()
     # early in the process: torch.profiler's trace keeps fewer of a short
     # window's kernels as the process ages (PERF.md section 6, PR 6)
-    cli_launches = phase_cli_slice()
+    cli_launches = counted("cli_slice", phase_cli_slice)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ds = synthetic_dataset("collab", seed=0, scale=1.0).reorder_bfs()
     t_data = time.perf_counter() - t0
-    m_launches = phase_slice(ds, t_data)
+    m_launches = counted("slice", phase_slice, ds, t_data)
     torch.cuda.empty_cache()
-    w_train, w_eval = phase_window_slice(ds)
+    w_train, w_eval = counted("window_slice", phase_window_slice, ds)
     torch.cuda.empty_cache()
-    b_launches, shapes, bench_losses = phase_bench_slice(ds)
+    with captured_segment_sums() as seg_calls:
+        b_launches, shapes, bench_losses = counted("bench_slice", phase_bench_slice, ds)
+    seg_shapes, seg_shapes_err = phase_segment_sum_shapes(seg_calls)
+    # one seed, one result: the main path, arm 1 and cn3, each run twice
+    phase_determinism(ds)
     torch.cuda.empty_cache()
     # the multi-device tier: ranks sharing the card, with their reference
     # cases on phase 3's Cora graph
@@ -2698,32 +3155,34 @@ def run_phases(jobs) -> int:
     for name, phase in (("ocnp_slice", phase_ocnp_slice),
                         ("cn6_slice", phase_cn6_slice),
                         ("hoist_slice", phase_hoist_slice)):
-        train, evals, phase_shapes = phase(ds)
+        train, evals, phase_shapes = counted(name, phase, ds)
         new[name] = (sum(train["membership_launches_per_step"])
                      + evals["membership_launches_eval"])
         shapes = shapes + phase_shapes
         torch.cuda.empty_cache()
-    new["variants_slice"], phase_shapes = phase_variants_slice(ds)
+    new["variants_slice"], phase_shapes = counted("variants_slice",
+                                                  phase_variants_slice, ds)
     shapes = shapes + phase_shapes
     torch.cuda.empty_cache()
-    new["presets_slice"], phase_shapes = phase_presets_slice({"collab": ds})
+    new["presets_slice"], phase_shapes = counted("presets_slice", phase_presets_slice,
+                                                 {"collab": ds})
     shapes = shapes + phase_shapes
     torch.cuda.empty_cache()
-    new["family_slice"], phase_shapes = phase_family_slice(ds)
+    new["family_slice"], phase_shapes = counted("family_slice", phase_family_slice, ds)
     shapes = shapes + phase_shapes
     torch.cuda.empty_cache()
     # the eval instrument's dataset is this one (collab at 1.0, BFS order)
-    new["eval_bench"], phase_shapes = phase_eval_bench(ds)
+    new["eval_bench"], phase_shapes = counted("eval_bench", phase_eval_bench, ds)
     shapes = shapes + phase_shapes
     del ds
     torch.cuda.empty_cache()
     # the bench program makes its own dataset, as python -m runs it
-    bench_launches, bench_window = phase_bench_program()
+    bench_launches, bench_window = counted("bench_program", phase_bench_program)
     new["bench_program"] = bench_launches
     new["cli_slice"] = cli_launches
     torch.cuda.empty_cache()
     # while the workers finish the ppa and citation2 datasets
-    new["accuracy_slice"], phase_shapes = phase_accuracy_slice()
+    new["accuracy_slice"], phase_shapes = counted("accuracy_slice", phase_accuracy_slice)
     shapes = shapes + phase_shapes
     torch.cuda.empty_cache()
     new["scaling_bench"], phase_shapes = phase_scaling_bench()
@@ -2731,7 +3190,8 @@ def run_phases(jobs) -> int:
     # bench.py's ppa and citation2 shapes and the spd preset, each on a
     # dataset of its own, made here
     ds, data = made_dataset(jobs["ppa"])
-    train, evals, phase_shapes = phase_shape_slice("ppa_slice", ds, data)
+    train, evals, phase_shapes = counted("ppa_slice", phase_shape_slice, "ppa_slice",
+                                         ds, data)
     new["ppa_slice"] = (sum(train["membership_launches_per_step"])
                         + evals["membership_launches_eval"])
     shapes = shapes + phase_shapes
@@ -2740,14 +3200,14 @@ def run_phases(jobs) -> int:
     ds, data = made_dataset(jobs["citation2"])
     for name, phase in (("citation2_slice", lambda ds: phase_shape_slice(
             "citation2_slice", ds, data)), ("spd_slice", phase_spd_slice)):
-        train, evals, phase_shapes = phase(ds)
+        train, evals, phase_shapes = counted(name, phase, ds)
         new[name] = (sum(train["membership_launches_per_step"])
                      + evals["membership_launches_eval"])
         shapes = shapes + phase_shapes
         torch.cuda.empty_cache()
     del ds
     ds, data = made_dataset(jobs["mrr"])
-    new["mrr_bench"], phase_shapes = phase_mrr_bench(ds, data)
+    new["mrr_bench"], phase_shapes = counted("mrr_bench", phase_mrr_bench, ds, data)
     shapes = shapes + phase_shapes
     del ds
     torch.cuda.empty_cache()
@@ -2778,6 +3238,7 @@ def run_phases(jobs) -> int:
         kernel_entry("sorted_block_rows", row_gather, row_gather.REPLACES_SORTED,
                      g_launches["sorted_block_rows"], *kern["sorted_block"],
                      gather_bench_ms=g_variants["onehot_mxu"]["ms"]),
+        segment_sum_entry(*kern["segment_sum"], seg, seg_shapes, seg_shapes_err),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,9 @@ either two-hop mode, with ELL tables, the dual-K split, the window table,
 grouped and hoisted frames, bfloat16 features and cndeg caps; and the
 row-gather instrument (``scripts/bench_gather.py``).  Its TPU kernels are hand-written CUDA
 kernels under ``csrc/`` (membership counts, window gather, row and
-sorted-block gathers), launched when their tensors are on the card.
+sorted-block gathers), launched when their tensors are on the card, and so
+is XLA's sorted segment sum (``csrc/segment_sum.cu``: every scatter-add of
+the port, in a fixed order, so one seed gives one result on the card).
 
 Entry points (``train.loop.Trainer``, ``cli.run``,
 ``scripts.bench_gather.main``) default to ``device="cuda"``; pass

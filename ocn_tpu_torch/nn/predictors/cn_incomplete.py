@@ -54,6 +54,7 @@ from ocn_tpu_torch.ops.frame import (
     gather_neighbors, matmul_shared)
 from ocn_tpu_torch.ops.ortho import colnorm_plain, colnorm_quirk
 from ocn_tpu_torch.ops.sample import sample_frame, sample_frames
+from ocn_tpu_torch.ops.segment_sum import segment_sum_by, sort_segments
 from ocn_tpu_torch.parallel import shard
 from ocn_tpu_torch.sparse.csr import Graph
 
@@ -279,12 +280,12 @@ class IncompleteCNPredictor(_FramePredictor):
         if valid is not None:
             cn22_val = cn22_val * valid[:, :, None]
         ids_flat = src.ids.reshape(-1).long()
+        order = sort_segments(ids_flat, n + 1)
 
         def colsum(val_brk):
             # colsum is linear, and the R copies of an anchor share its ids
             pre = val_brk.sum(dim=1).reshape(-1)
-            return shard.dp_sum(torch.zeros(
-                n + 1, dtype=pre.dtype, device=pre.device).index_add_(0, ids_flat, pre))
+            return shard.dp_sum(segment_sum_by(pre, ids_flat, n + 1, order))
 
         s1 = colsum(cn_val)
         s_rep = torch.where(s1 == 0, 1.0, s1)

@@ -14,8 +14,9 @@ A^2[j, k] is read from precomputed capped rows ("gather" mode) or counted
 on the fly as |N(k) & N(j)| ("sddmm" mode).
 Entries with value 0 are absent, so masked adjacency entries drop out by
 value.  The membership lookups run through ops/membership.py and the
-window-table frame matmul through ops/window_gather.py (the CUDA kernels on
-the card).
+window-table frame matmul through ops/window_gather.py, every column sum and
+the frame matmul's dx through ops/segment_sum.py (the CUDA kernels on the
+card).
 
 cn6's third frame (``cn3_frame``) reads a precomputed A^3 the same way,
 and the incomplete family (cn2/cn3/cn4) takes the CN set with its two
@@ -30,6 +31,8 @@ import torch
 
 from ocn_tpu_torch.ops import window_gather as W
 from ocn_tpu_torch.ops.membership import membership_counts
+from ocn_tpu_torch.ops.segment_sum import (
+    segment_sum_by, segment_sum_raw, sort_segments, sorted_offsets)
 from ocn_tpu_torch.parallel import shard
 from ocn_tpu_torch.sparse.csr import Graph
 
@@ -207,8 +210,8 @@ class CNFrame:
     def col_sum(self) -> torch.Tensor:
         """Per-node column sums over the batch (the whole chunk in the mesh
         step), (n_nodes,)."""
-        s = torch.zeros(self.n_nodes + 1, dtype=self.val.dtype, device=self.val.device)
-        s = s.index_add(0, self.ids.reshape(-1), self.val.reshape(-1))
+        s = segment_sum_by(self.val.reshape(-1), self.ids.reshape(-1),
+                           self.n_nodes + 1)
         return shard.dp_sum(s)[: self.n_nodes]
 
     def scale_cols(self, colscale: torch.Tensor) -> "CNFrame":
@@ -239,6 +242,8 @@ class FrameIndex:
     rank_inv : (M,) compact column index per entry (rank at the entry's
                sorted position)
     ids      : (M,) the flat ids (sentinel n_nodes kept)
+    rank_off : (M+1,) segment offsets of rank (ranks past the last are empty)
+    seg_off  : (n_nodes+1,) segment offsets of seg
     """
 
     perm: torch.Tensor
@@ -247,6 +252,8 @@ class FrameIndex:
     rank_inv: torch.Tensor
     ids: torch.Tensor
     n_nodes: int
+    rank_off: torch.Tensor
+    seg_off: torch.Tensor
 
 
 def frame_index(ids: torch.Tensor, n_nodes: int) -> FrameIndex:
@@ -259,38 +266,42 @@ def frame_index(ids: torch.Tensor, n_nodes: int) -> FrameIndex:
     rank = torch.cumsum(is_start, 0) - 1
     seg = torch.clamp(sorted_ids, max=n_nodes - 1).long()
     rank_inv = torch.empty_like(rank).index_copy_(0, perm, rank)
-    return FrameIndex(perm, rank, seg, rank_inv, flat, n_nodes)
+    return FrameIndex(perm, rank, seg, rank_inv, flat, n_nodes,
+                      rank_off=sorted_offsets(rank, rank.numel()),
+                      seg_off=sorted_offsets(seg, n_nodes))
 
 
-def _col_sum_map(vals: torch.Tensor, perm, rank, out_idx) -> torch.Tensor:
-    """out[p, b, k] = sum of vals[p] over entries sharing ids[b, k]."""
+def _col_sum_map(vals: torch.Tensor, perm, rank_off, out_idx) -> torch.Tensor:
+    """out[p, b, k] = sum of vals[p] over entries sharing ids[b, k]: the
+    planes read as (M, P) rows in sorted order, summed by rank."""
     p = vals.shape[0]
-    m = vals[0].numel()
-    sv = vals.reshape(p, -1)[:, perm].T  # (M, P)
-    sums = torch.zeros(m, p, dtype=vals.dtype, device=vals.device)
-    sums.index_add_(0, rank, sv)
+    sums = segment_sum_raw(vals.reshape(p, -1).T, rank_off, perm)  # (M, P)
     return sums[out_idx].T.reshape(vals.shape)
 
 
 class _EntryColSumMulti(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vals, perm, rank, out_idx):
-        ctx.save_for_backward(perm, rank, out_idx)
-        return _col_sum_map(vals, perm, rank, out_idx)
+    def forward(ctx, vals, perm, rank_off, out_idx):
+        ctx.save_for_backward(perm, rank_off, out_idx)
+        return _col_sum_map(vals, perm, rank_off, out_idx)
 
     @staticmethod
     def backward(ctx, g):
         # linear and self-adjoint (the matrix [id_p == id_q] is symmetric)
-        perm, rank, out_idx = ctx.saved_tensors
-        return _col_sum_map(g, perm, rank, out_idx), None, None, None
+        perm, rank_off, out_idx = ctx.saved_tensors
+        return _col_sum_map(g, perm, rank_off, out_idx), None, None, None
 
 
-def entry_col_sum_multi(vals: torch.Tensor, perm, rank, out_idx) -> torch.Tensor:
+def entry_col_sum_multi(vals: torch.Tensor, perm, rank, out_idx,
+                        rank_off: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-entry batch column sums of P value planes sharing one id array:
     vals (P, B, K) -> (P, B, K), out[p, b, k] = sum over entries with id
     ids[b, k] of vals[p].  One sorted segment-sum pass; the VJP is the same
-    map applied to the cotangent."""
-    return _EntryColSumMulti.apply(vals, perm, rank, out_idx)
+    map applied to the cotangent.  ``rank_off``: the offsets of ``rank``
+    (FrameIndex.rank_off), found here when not given."""
+    if rank_off is None:
+        rank_off = sorted_offsets(rank, rank.numel())
+    return _EntryColSumMulti.apply(vals, perm, rank_off, out_idx)
 
 
 def entry_col_sums(vals: torch.Tensor, fidx: FrameIndex) -> torch.Tensor:
@@ -300,48 +311,47 @@ def entry_col_sums(vals: torch.Tensor, fidx: FrameIndex) -> torch.Tensor:
     out = shard.dp_col_sums(vals, fidx.ids, fidx.n_nodes)
     if out is not None:
         return out
-    return entry_col_sum_multi(vals, fidx.perm, fidx.rank, fidx.rank_inv)
+    return entry_col_sum_multi(vals, fidx.perm, fidx.rank, fidx.rank_inv,
+                               fidx.rank_off)
 
 
-def _segment_dx(vals, dout, perm, seg, n_nodes: int) -> torch.Tensor:
+def _segment_dx(vals, dout, perm, seg_off) -> torch.Tensor:
     """dx of a frame matmul: sum_p vals[p] * dout[p] per entry, summed into
-    its node by the sorted segment-sum over the FrameIndex (perm, seg)."""
+    its node by the sorted segment-sum over the FrameIndex (perm, seg_off)."""
     _, b, k = vals.shape
     coef = torch.einsum("pbk,pbh->bkh", vals, dout)
-    contrib = coef.reshape(b * k, -1)[perm]
-    return torch.zeros(n_nodes, dout.shape[-1], dtype=dout.dtype,
-                       device=dout.device).index_add_(0, seg, contrib)
+    return segment_sum_raw(coef.reshape(b * k, -1), seg_off, perm)
 
 
 class _FrameMatmulMulti(torch.autograd.Function):
     """out[p, b] = sum_k vals[p, b, k] * x[ids[b, k]] over ONE row gather.
 
     Backward: dx = sorted segment-sum of sum_p vals[p]*dout[p] over the flat
-    ids (reusing the FrameIndex sort when given, else sorting here);
+    ids (reusing the FrameIndex sort when given, else sorting here; the
+    sentinel lanes sum into node n_nodes - 1, as in the JAX package);
     dvals[p, b, k] = <x[ids[b, k]], dout[p, b]>.  ``save_rows`` keeps the
     forward's (B, K, H) gather for the backward instead of re-gathering
     (the reference's default, _use_save_rows)."""
 
     @staticmethod
-    def forward(ctx, x, vals, ids, perm, seg, n_nodes, save_rows):
+    def forward(ctx, x, vals, ids, perm, seg_off, n_nodes, save_rows):
         rows = x[torch.clamp(ids, max=n_nodes - 1)]  # (B, K, H)
         out = torch.einsum("pbk,bkh->pbh", vals, rows)
         ctx.n_nodes = n_nodes
         ctx.save_rows = save_rows
-        ctx.save_for_backward(rows if save_rows else x, vals, ids, perm, seg)
+        ctx.save_for_backward(rows if save_rows else x, vals, ids, perm, seg_off)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        saved, vals, ids, perm, seg = ctx.saved_tensors
+        saved, vals, ids, perm, seg_off = ctx.saved_tensors
         n_nodes = ctx.n_nodes
         dx = dvals = None
         if ctx.needs_input_grad[0]:
             if perm.numel() == 0:
-                flat = torch.clamp(ids, max=n_nodes - 1).reshape(-1)
-                perm = torch.argsort(flat, stable=True)
-                seg = flat[perm].long()
-            dx = _segment_dx(vals, dout, perm, seg, n_nodes)
+                perm, seg_off = sort_segments(
+                    torch.clamp(ids, max=n_nodes - 1), n_nodes)
+            dx = _segment_dx(vals, dout, perm, seg_off)
         if ctx.needs_input_grad[1]:
             rows = saved if ctx.save_rows else saved[torch.clamp(ids, max=n_nodes - 1)]
             dvals = torch.einsum("bkh,pbh->pbk", rows, dout)
@@ -358,14 +368,14 @@ class _FrameMatmulMultiWindow(torch.autograd.Function):
 
     Gradient: out depends on x only through y, and y is built from the
     detached x, so the whole cotangent flows to x here: dx is the sorted
-    segment-sum over (perm, seg) of _FrameMatmulMulti; nothing flows to y.
-    dvals (dead in cn5: the CN values reach no parameter) re-runs the window
+    segment-sum over (perm, seg_off) of _FrameMatmulMulti; nothing flows to
+    y.  dvals (dead in cn5: the CN values reach no parameter) re-runs the window
     gather only when asked for and takes lanes k + off.  No rows are kept for
     the backward.  The contiguity of ``pos`` is checked on CPU tensors; on
     the card the check would cost a host sync per chunk."""
 
     @staticmethod
-    def forward(ctx, x, y, pos, vals, perm, seg, n_nodes):
+    def forward(ctx, x, y, pos, vals, perm, seg_off):
         k = pos.shape[-1]
         if pos.device.type == "cpu":
             lane = torch.arange(k, dtype=pos.dtype)
@@ -374,24 +384,23 @@ class _FrameMatmulMultiWindow(torch.autograd.Function):
                                  "pos[b, k] == pos[b, 0] + k")
         rows, off = W.window_rows(y, pos[:, 0], k)  # (B, J, H)
         out = torch.einsum("pbj,bjh->pbh", W.pad_vals(vals, off, k + W.SLACK), rows)
-        ctx.n_nodes = n_nodes
-        ctx.save_for_backward(y, pos, vals, perm, seg)
+        ctx.save_for_backward(y, pos, vals, perm, seg_off)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        y, pos, vals, perm, seg = ctx.saved_tensors
+        y, pos, vals, perm, seg_off = ctx.saved_tensors
         p, b, k = vals.shape
         dx = dvals = None
         if ctx.needs_input_grad[0]:
-            dx = _segment_dx(vals, dout, perm, seg, ctx.n_nodes)
+            dx = _segment_dx(vals, dout, perm, seg_off)
         if ctx.needs_input_grad[3]:
             rows, off = W.window_rows(y, pos[:, 0], k)
             dvals_pad = torch.einsum("bjh,pbh->pbj", rows, dout)
             klane = (torch.arange(k, device=off.device)[None, :]
                      + off.long()[:, None])
             dvals = torch.gather(dvals_pad, 2, klane[None].expand(p, b, k))
-        return dx, None, None, dvals, None, None, None
+        return dx, None, None, dvals, None, None
 
 
 def matmul_shared(frames: List[CNFrame], x: torch.Tensor,
@@ -409,11 +418,11 @@ def matmul_shared(frames: List[CNFrame], x: torch.Tensor,
     vals = shard.tp_contracted(torch.stack([f.val for f in frames]), x.shape[-1])
     if y is not None and pos is not None and fidx is not None:
         out = _FrameMatmulMultiWindow.apply(x, y, pos, vals, fidx.perm,
-                                            fidx.seg, frames[0].n_nodes)
+                                            fidx.seg_off)
         return list(out.unbind(0))
     empty = ids.new_zeros(0, dtype=torch.long)
-    perm, seg = (fidx.perm, fidx.seg) if fidx is not None else (empty, empty)
-    out = _FrameMatmulMulti.apply(x, vals, ids, perm, seg, frames[0].n_nodes,
+    perm, seg_off = (fidx.perm, fidx.seg_off) if fidx is not None else (empty, empty)
+    out = _FrameMatmulMulti.apply(x, vals, ids, perm, seg_off, frames[0].n_nodes,
                                   save_rows)
     return list(out.unbind(0))
 

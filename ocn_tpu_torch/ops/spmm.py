@@ -7,10 +7,13 @@ graph.  Messages are ``val[p] * x[col[p]]`` summed into ``row[p]``.
   maskinput shrink the denominator, as the reference's masked nnz do);
 * ``max`` reduces val * x over present entries, empty rows give 0.
 
-The sum SpMM over a symmetric pattern has a custom backward that re-indexes
-through the transpose permutation ``tpos``, so dx is another row-sorted
-segment sum of the same shape as the forward.  Past ``_SPMM_BLOCK_BYTES`` of
-(E, H) intermediate the edge dimension is processed in blocks.
+Sums run through ops/segment_sum.py (the CUDA kernel on the card: rows in
+a fixed order, so one input gives one result), which reads ``x[col[p]]``
+and ``val[p]`` itself: no (E, H) message tensor is formed.  The sum SpMM
+over a symmetric pattern has a custom backward that re-indexes through the
+transpose permutation ``tpos``, so dx is another row-sorted segment sum of
+the same shape as the forward.  Past ``_SPMM_BLOCK_BYTES`` of (E, H)
+intermediate the edge dots of dval are processed in blocks.
 
 A node-sharded graph (parallel/sharded_graph.py LocalGraph) carries its own
 halo-exchange ``sharded_spmm`` and convs; ``spmm``, ``gcn_norm_conv`` and
@@ -21,27 +24,15 @@ from __future__ import annotations
 
 import torch
 
+from ocn_tpu_torch.ops.segment_sum import segment_sum
 from ocn_tpu_torch.sparse.csr import Graph
 
-# (E, H) message tensors above this many bytes are computed in edge blocks
+# (E, H) gathered operands above this many bytes are computed in edge blocks
 _SPMM_BLOCK_BYTES = 1 << 31  # 2 GB
 
 
 def _nblocks(nbytes: int) -> int:
     return max(1, -(-nbytes // _SPMM_BLOCK_BYTES))
-
-
-def _segment_spmm(x, col, row, val, n_nodes):
-    """sum_p val[p] * x[col[p]] into rows, edge-blocked past the budget."""
-    e, h = col.shape[0], x.shape[-1]
-    dtype = torch.promote_types(x.dtype, val.dtype)
-    out = torch.zeros(n_nodes, h, dtype=dtype, device=x.device)
-    nblk = _nblocks(e * h * dtype.itemsize)
-    blk = -(-e // nblk)
-    for s in range(0, e, blk):
-        msg = val[s:s + blk, None] * x[col[s:s + blk]]
-        out.index_add_(0, row[s:s + blk], msg)
-    return out
 
 
 def _edge_dots(x, dout, col, row):
@@ -65,25 +56,26 @@ class _SpmmSumSym(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, val, col, row, tpos, n_nodes):
-        ctx.save_for_backward(x, val, col, row, tpos)
-        return _segment_spmm(x, col, row, val, n_nodes)
+    def forward(ctx, x, val, col, row, tpos, off):
+        ctx.save_for_backward(x, val, col, row, tpos, off)
+        return segment_sum(x, off, col, val)
 
     @staticmethod
     def backward(ctx, dout):
-        x, val, col, row, tpos = ctx.saved_tensors
+        x, val, col, row, tpos, off = ctx.saved_tensors
         dx = dval = None
         if ctx.needs_input_grad[0]:
-            dx = _segment_spmm(dout, col, row, val[tpos], x.shape[0]).to(x.dtype)
+            dx = segment_sum(dout, off, col, val[tpos]).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dval = _edge_dots(x, dout, col, row).to(val.dtype)
         return dx, dval, None, None, None, None
 
 
 def _spmm_sum(g: Graph, x: torch.Tensor) -> torch.Tensor:
+    off = g.row_offsets()
     if g.tpos is not None:
-        return _SpmmSumSym.apply(x, g.val, g.col, g.row, g.tpos, g.n_nodes)
-    return _segment_spmm(x, g.col, g.row, g.val, g.n_nodes)
+        return _SpmmSumSym.apply(x, g.val, g.col, g.row, g.tpos, off)
+    return segment_sum(x, off, g.col, g.val)
 
 
 def spmm(g: Graph, x: torch.Tensor, aggr: str = "sum") -> torch.Tensor:
@@ -95,8 +87,7 @@ def spmm(g: Graph, x: torch.Tensor, aggr: str = "sum") -> torch.Tensor:
         return _spmm_sum(g, x)
     if aggr == "mean":
         s = _spmm_sum(g, x)
-        cnt = torch.zeros(g.n_nodes, dtype=x.dtype, device=x.device)
-        cnt.index_add_(0, g.row, (g.val != 0).to(x.dtype))
+        cnt = segment_sum((g.val != 0).to(x.dtype), g.row_offsets())
         return s / cnt.clamp_min(1.0)[:, None]
     if aggr == "max":
         neg = torch.finfo(x.dtype).min

@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ocn_tpu_torch.ops.segment_sum import segment_sum_by
 from ocn_tpu_torch.parallel.launch import AllGatherRows, AllToAll, RingShift
 from ocn_tpu_torch.sparse.csr import Graph
 
@@ -151,9 +152,9 @@ def partition_graph_boundary(g: Graph, ndev: int) -> BoundaryPartition:
 
 
 def segment_sum(msg: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + tuple(msg.shape[1:]), dtype=msg.dtype,
-                      device=msg.device)
-    return out.index_add(0, rows, msg)
+    """(n, ...) sums of msg's rows by ``rows`` (ops/segment_sum.py: a fixed
+    order, so one input gives one result on the card)."""
+    return segment_sum_by(msg, rows, n)
 
 
 def _mine(mesh, arr: np.ndarray) -> torch.Tensor:

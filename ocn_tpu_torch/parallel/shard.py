@@ -35,6 +35,7 @@ from typing import Optional, Set
 import torch
 import torch.nn.functional as F
 
+from ocn_tpu_torch.ops.segment_sum import segment_sum_by
 from ocn_tpu_torch.parallel.launch import AllReduceSum
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("ocn_row_shard",
@@ -201,10 +202,10 @@ class _DpColSums(torch.autograd.Function):
     @staticmethod
     def _map(vals, ids, n_nodes, mesh):
         p = vals.shape[0]
-        dense = torch.zeros(p, n_nodes + 1, dtype=vals.dtype, device=vals.device)
-        dense.index_add_(1, ids, vals.reshape(p, -1))
+        # (n_nodes + 1, P) sums in the segment sum's fixed order
+        dense = segment_sum_by(vals.reshape(p, -1).T, ids, n_nodes + 1)
         dense = mesh.comm.all_reduce(dense, mesh.dp_group)
-        return dense[:, ids].reshape(vals.shape)
+        return dense[ids].T.reshape(vals.shape)
 
     @staticmethod
     def backward(ctx, g):

@@ -19,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ocn_tpu_torch.ops.segment_sum import segment_sum
+
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
@@ -116,10 +118,17 @@ class Graph:
         scale = 1.0 / (1.0 - p) if doscale else 1.0
         return self.with_values(torch.where(keep, self.val * scale, 0.0))
 
+    def row_offsets(self) -> torch.Tensor:
+        """(n_nodes + 1,) int64 segment offsets of the COO entries by row:
+        ``indptr`` with the last row stretched over the gather pad, whose row
+        ids are the last row's (graph_from_numpy)."""
+        off = self.indptr.long()
+        return torch.cat([off[:-1], off.new_full((1,), self.nnz)])
+
     def value_rowsum(self) -> torch.Tensor:
-        """Per-row sum of values (the reference's adj.sum(dim=-1))."""
-        out = torch.zeros(self.n_nodes, dtype=self.val.dtype, device=self.device)
-        return out.index_add_(0, self.row, self.val)
+        """Per-row sum of values (the reference's adj.sum(dim=-1)), in the
+        sorted segment sum's fixed order (ops/segment_sum.py)."""
+        return segment_sum(self.val, self.row_offsets())
 
 
 # tail padding so neighbor-window gathers never clamp backwards near the end

@@ -5,7 +5,7 @@ kernel), and where the device time of a training step goes
 
 Kernels launched from the port's ctypes libraries appear in the profiler's
 trace under their CUDA names (``window_rows_kernel``, ``membership_kernel``,
-...), like PyTorch's own.  ``chip_smoke.py`` reads these numbers; the CUDA
+``seg_tiles``, ...), like PyTorch's own.  ``chip_smoke.py`` reads these numbers; the CUDA
 events it also takes without a spin time whole calls, wrapper included.
 ``chrome_trace`` is the CLI's ``--profile_dir``: a region's trace as a
 file, the counterpart of ``jax.profiler.trace``.
@@ -113,15 +113,36 @@ def top_kernels(intervals: Sequence[Interval], n: int = 10,
             for name in order]
 
 
+# kernel classes a step's device time is split into (by a substring of the
+# kernel's name): the port's sorted segment sum (csrc/segment_sum.cu), and
+# PyTorch's index kernels (index_add_ and index_copy_ among them) and
+# scatters, the atomic scatter-adds it replaced
+KERNEL_CLASSES = {"segment_sum": ("seg_tiles", "seg_spans"),
+                  "index_kernels": ("indexFunc",),
+                  "scatter_kernels": ("scatter",)}
+
+
+def class_ms(intervals: Sequence[Interval]) -> Dict[str, Dict[str, float]]:
+    """Device ms and launches of each KERNEL_CLASSES class."""
+    out = {}
+    for cls, keys in KERNEL_CLASSES.items():
+        hits = [(t1 - t0) / 1e3 for name, t0, t1 in intervals
+                if any(k in name for k in keys)]
+        out[cls] = {"ms": sum(hits), "launches": len(hits)}
+    return out
+
+
 def step_breakdown(intervals: Sequence[Interval], window: Tuple[float, float],
                    n: int = 10) -> Dict[str, object]:
-    """Device-busy share of a host window (µs) and its top kernels."""
+    """Device-busy share of a host window (µs), its top kernels and the
+    device time of each kernel class (class_ms)."""
     lo, hi = window
     inside = [iv for iv in intervals if iv[2] > lo and iv[1] < hi]
     busy = busy_us(inside, lo, hi)
     return {"window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / (hi - lo) if hi > lo else None,
-            "device_activities": len(inside), "top_kernels": top_kernels(inside, n)}
+            "device_activities": len(inside), "top_kernels": top_kernels(inside, n),
+            "kernel_classes": class_ms(inside)}
 
 
 def profile_region(fn: Callable[[], object], cuda: bool = True
@@ -138,7 +159,8 @@ def profile_region(fn: Callable[[], object], cuda: bool = True
     window = (span[0].start, span[0].end)
     if not cuda:
         return out, {"window_ms": (window[1] - window[0]) / 1e3,
-                     "device_busy_share": None, "top_kernels": []}
+                     "device_busy_share": None, "top_kernels": [],
+                     "kernel_classes": {}}
     return out, step_breakdown(device_intervals(prof), window)
 
 

@@ -17,6 +17,7 @@ import chip_smoke
 from ocn_tpu_torch.ops import frame
 from ocn_tpu_torch.ops import membership as M
 from ocn_tpu_torch.ops import row_gather as RG
+from ocn_tpu_torch.ops import segment_sum as SS
 from ocn_tpu_torch.ops import window_gather as W
 from torch_parity import one_thread  # noqa: F401 (re-exported, autouse where imported)
 
@@ -61,3 +62,12 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(W, "window_rows", _counting(W.window_rows))
     monkeypatch.setattr(RG, "row_rows", _counting(RG.row_rows))
     monkeypatch.setattr(RG, "sorted_block_rows", _counting(RG.sorted_block_rows))
+    # the segment sum's wrapper counts its plain version's calls as launches
+    plain = SS.segment_sum_plain
+
+    def segment_sum_plain(src, off, idx=None, scale=None):
+        SS.segment_sum_raw.launches += 1
+        return plain(src, off, idx, scale)
+
+    monkeypatch.setattr(SS, "segment_sum_plain", segment_sum_plain)
+    monkeypatch.setattr(SS.segment_sum_raw, "launches", 0)

@@ -1,7 +1,8 @@
-"""The port on the card: the CUDA membership, window-gather, row-gather
-and sorted-block-gather kernels against their plain versions, and the
-kernels' callers on CUDA tensors against the same calls on CPU tensors
-(the grouped bfloat16 steps among them).  Every test here is marked ``cuda``
+"""The port on the card: the CUDA membership, window-gather, row-gather,
+sorted-block-gather and segment-sum kernels against their plain versions,
+and the kernels' callers on CUDA tensors against the same calls on CPU
+tensors (the grouped bfloat16 steps among them), and two runs of one seed
+on the card against each other, bit for bit.  Every test here is marked ``cuda``
 and skips without a GPU.  The file imports neither JAX nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
@@ -16,6 +17,7 @@ from ocn_tpu_torch.data.loaders import synthetic_dataset
 from ocn_tpu_torch.ops import frame as tf
 from ocn_tpu_torch.ops import membership as tm
 from ocn_tpu_torch.ops import row_gather as trg
+from ocn_tpu_torch.ops import segment_sum as tss
 from ocn_tpu_torch.ops import window_gather as tw
 from ocn_tpu_torch.scripts import bench_gather as G
 from ocn_tpu_torch.sparse import build as B
@@ -414,3 +416,120 @@ def test_family_steps_on_the_card_match_cpu(cuda, pred):
     losses = {dev: _epoch_losses(cfg, ds, dev, check) for dev in ("cpu", "cuda")}
     assert tm.membership_counts.launches > before
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def _segments(rng, nseg, hub, lead=0, tail=0):
+    lens = rng.integers(1, 9, size=nseg) * (rng.random(nseg) > 0.33)
+    if hub:
+        lens[nseg // 2] = hub
+    return lead + np.concatenate([[0], np.cumsum(lens)]).astype(np.int64), tail
+
+
+@pytest.mark.parametrize("nseg,hub,h,idx_dtype,scaled,dtype,lead,tail", [
+    (5000, 0, 1, None, False, torch.float32, 0, 0),
+    (5000, 0, 64, torch.int64, True, torch.float32, 0, 0),
+    (3000, 0, 256, torch.int32, True, torch.float32, 0, 0),
+    (2000, 12000, 256, torch.int32, True, torch.float32, 0, 0),   # a hub row
+    (2000, 12000, 1, torch.int64, True, torch.float32, 0, 0),
+    (1000, 400000, 5, torch.int64, False, torch.float32, 0, 0),   # the sentinel lanes
+    (900, 0, 16, torch.int64, True, torch.float32, 5, 11),        # entries outside
+    (3000, 0, 64, torch.int32, True, torch.bfloat16, 0, 0),
+    (2000, 12000, 256, None, False, torch.bfloat16, 0, 0),        # bfloat16 out
+])
+def test_segment_sum_kernel_matches_plain(cuda, nseg, hub, h, idx_dtype, scaled,
+                                          dtype, lead, tail):
+    """The kernel against its plain version in float64: within rtol 1e-5
+    (1e-2 with bfloat16 rows) of the sum of the terms' magnitudes; two
+    calls bit-identical; empty segments 0."""
+    rng = np.random.default_rng(nseg + hub + h)
+    off, tail = _segments(rng, nseg, hub, lead, tail)
+    q = int(off[-1]) + tail
+    n_src = 3000 if idx_dtype is not None else q
+    src = torch.as_tensor(rng.standard_normal((n_src, h)), device=cuda).to(dtype)
+    idx = (None if idx_dtype is None else
+           torch.as_tensor(rng.integers(0, n_src, size=q), device=cuda).to(idx_dtype))
+    scale = (torch.as_tensor(rng.standard_normal(q), device=cuda).float()
+             if scaled else None)
+    off_t = torch.as_tensor(off, device=cuda)
+    before = tss.segment_sum_raw.launches
+    got = tss.segment_sum_raw(src, off_t, idx, scale)
+    again = tss.segment_sum_raw(src, off_t, idx, scale)
+    torch.cuda.synchronize()
+    assert tss.segment_sum_raw.launches == before + 2
+    assert got.dtype == (torch.float32 if scaled else dtype)
+    assert torch.equal(got, again)
+    sc = None if scale is None else scale.double()
+    want = tss.segment_sum_plain(src.double(), off_t, idx, sc)
+    mag = tss.segment_sum_plain(src.double().abs(), off_t, idx,
+                                None if sc is None else sc.abs())
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert bool(((got.double() - want).abs() <= rtol * mag).all())
+    empty = torch.as_tensor(off[1:] == off[:-1], device=cuda)
+    assert empty.any() and not got[empty].any()
+
+
+def test_segment_sum_planes_and_one_dimensional(cuda):
+    """Transposed (M, P) planes read through their strides equal the sums of
+    a contiguous copy, and 1-D values those of an (N, 1) column, bit for
+    bit (the order of the adds depends on the entries and the width H)."""
+    rng = np.random.default_rng(2)
+    off, _ = _segments(rng, 4000, 300000)
+    q = int(off[-1])
+    planes = torch.as_tensor(rng.standard_normal((3, q)), device=cuda).float()
+    perm = torch.randperm(q, device=cuda)
+    off_t = torch.as_tensor(off, device=cuda)
+    got = tss.segment_sum_raw(planes.T, off_t, perm)
+    assert torch.equal(got, tss.segment_sum_raw(planes.T.contiguous(), off_t, perm))
+    one = tss.segment_sum_raw(planes[1], off_t, perm)
+    assert torch.equal(one, tss.segment_sum_raw(planes[1][:, None], off_t, perm)[:, 0])
+    mag = tss.segment_sum_raw(planes[1].abs(), off_t, perm)
+    assert bool(((one - got[:, 1]).abs() <= 1e-5 * mag).all())
+
+
+def test_segment_sum_flushes_subnormals(cuda):
+    """Subnormal terms and sums flush to zero on the card, as index_add_'s
+    atomics and XLA's sums do; normal ones are untouched."""
+    vals = torch.tensor([3e-39, 4e-39, 1.0, -1.0, 2e-30, 3e-30], device=cuda)
+    off = torch.tensor([0, 2, 4, 6], device=cuda)
+    got = tss.segment_sum_raw(vals, off)
+    assert torch.equal(got, tss.segment_sum_plain(vals, off))
+    assert got[0] == 0 and got[1] == 0 and got[2] == vals[4] + vals[5]
+
+
+def test_segment_sum_wrapper_rejects(cuda):
+    src = torch.randn(10, 4, device=cuda)
+    off = torch.tensor([0, 4, 10], device=cuda)
+    with pytest.raises(TypeError):
+        tss.segment_sum_raw(src.double(), off)
+    with pytest.raises(ValueError, match="int64"):
+        tss.segment_sum_raw(src, off.int())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tss.segment_sum_raw(src, off.cpu())
+    with pytest.raises(ValueError, match="scale"):
+        tss.segment_sum_raw(src, off, None, torch.ones(3, device=cuda))
+
+
+@pytest.mark.parametrize("pred", ["cn5", "cn3"])
+def test_one_seed_one_result_on_the_card(cuda, pred):
+    """Two runs of two epochs from one seed on the card give the same
+    losses and parameters, bit for bit: every scatter-add of the port is the
+    segment sum's fixed order."""
+    ds = synthetic_dataset("Cora", seed=0, scale=0.2).reorder_bfs()
+    kw = dict(TRAIN_KW, gnndp=0.1, predp=0.1, preedp=0.1)
+    if pred == "cn3":
+        kw.update(predictor=pred, ell_tables=True, pad_deg=16, pad_deg2=16,
+                  k_small=4, rec_k=8, trndeg=16, tstdeg=16, depth=1)
+    cfg = Config(**kw)
+    runs = []
+    for _ in range(2):
+        before = tss.segment_sum_raw.launches
+        tr = Trainer(cfg, ds, device=cuda)
+        state = tr.init_state(0)
+        rng = np.random.default_rng(0)
+        losses = [tr.train_epoch(state, rng, ep)[1] for ep in (1, 2)]
+        assert tss.segment_sum_raw.launches > before
+        runs.append((losses, [p.detach().clone() for p in
+                              list(state.encoder.parameters())
+                              + list(state.predictor.parameters())]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
