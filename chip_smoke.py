@@ -20,8 +20,13 @@ and the script exits nonzero:
              segment sum (csrc/segment_sum.cu) is held against its plain
              version in float64 (rtol 1e-5 of the terms' magnitudes in
              float32, 1e-2 with bfloat16 rows) on ragged and empty segments,
-             hub rows of 12,000 and 400,000 entries and H from 1 to 256, two
-             calls bit-identical; then timed at the encoder SpMM's shape.
+             hub rows of 12,000 and 400,000 entries and H from 1 to 257, two
+             calls bit-identical; on the small cases (every width, bfloat16
+             rows at H 256 and 264, a segment of 100,000 entries, 100,000
+             trailing empties, misaligned and odd-stride rows) bit for bit
+             against segment_sum_ordered, its order of adds written out;
+             then timed at the encoder SpMM's shape beside index_add_,
+             torch.sparse.mm of the CSR matrix and torch.segment_reduce.
 3. reference - the slices at a tiny size on the card against the same
              slices on the CPU (plain versions), same initial weights, one
              case at a time (reference_cases, run_reference_case): the plain
@@ -77,7 +82,10 @@ and the script exits nonzero:
 6a. segment_sum_shapes - the segment-sum kernel on the inputs bench_slice
              gave it, one call a (site, entries, segments, columns): held
              against its plain version in float64 and timed beside its
-             bound, its plain version and index_add_ of the same products.
+             bound, its plain version, index_add_ of the same products, and
+             the PyTorch call that computes the whole function
+             (torch.sparse.mm with a row index, torch.segment_reduce
+             without).
 6b. determinism - one seed, one result: bench_slice's program (three steps
              and one evaluate), arm 1 of the accuracy study (all 24 epochs
              through run_one) and one family_slice cn3 step, each run twice
@@ -729,11 +737,13 @@ def ragged_lens(gen, nseg, hub=0, hub_at=None):
     return lens
 
 
-def segment_sum_check(label, src, off, idx, scale):
+def segment_sum_check(label, src, off, idx, scale, ordered=False):
     """The kernel against its plain version in float64 on the same inputs:
     |kernel - plain| <= rtol * (the sum of the terms' magnitudes), rtol 1e-5
-    for float32 rows and 1e-2 for bfloat16 ones; two calls bit-identical.
-    Returns the largest absolute error."""
+    for float32 rows and 1e-2 for bfloat16 ones; two calls bit-identical;
+    with ``ordered`` also bit for bit segment_sum_ordered (the kernel's
+    order of adds written out in plain PyTorch, run on the CPU).  Returns
+    the largest absolute error."""
     from ocn_tpu_torch.ops import segment_sum as SS
 
     got = SS.segment_sum_raw(src, off, idx, scale)
@@ -741,6 +751,14 @@ def segment_sum_check(label, src, off, idx, scale):
     torch.cuda.synchronize()
     if not torch.equal(bits(got), bits(again)):
         raise AssertionError(f"segment_sum {label}: two calls differ")
+    if ordered:
+        cpu = [None if t is None else t.cpu() for t in (src, off, idx, scale)]
+        ref = SS.segment_sum_ordered(*cpu)
+        apart = bits(got.cpu()) != bits(ref)
+        if bool(apart.any()):
+            raise AssertionError(
+                f"segment_sum {label}: {int(apart.sum())} sums differ from "
+                f"segment_sum_ordered, the first at {apart.nonzero()[0].tolist()}")
     sc64 = None if scale is None else scale.double()
     want = SS.segment_sum_plain(src.double(), off, idx, sc64)
     mag = SS.segment_sum_plain(src.double().abs(), off, idx,
@@ -797,15 +815,37 @@ def segment_sum_checks(gen):
         ("bf16 rows and out, H=256, hub", ragged_lens(gen, 2000, 12000), 0, 256,
          None, False, bf16, {}),
     ]
+    # both paths at every width (narrow to H = 8, wide above, 16-byte rows
+    # where H allows), bfloat16 rows of 33 vectors, a long segment and
+    # 100,000 trailing empties: small enough to hold bit for bit against
+    # segment_sum_ordered
+    ordered = [(f"widths, H={h}, hub of 3,000", ragged_lens(gen, 1500, 3000), 700,
+                h, i64, True, f32, {"lead": 3, "tail": 5})
+               for h in (1, 2, 3, 4, 5, 8, 31, 32, 33, 255, 256, 257)]
+    ordered += [
+        ("bf16 rows, H=256, scale", ragged_lens(gen, 1200, 2000), 900, 256, i64,
+         True, bf16, {}),
+        ("bf16 rows, H=264, scale", ragged_lens(gen, 1200, 2000), 900, 264, i32,
+         True, bf16, {}),
+        ("segment of 100,000 entries, H=3", ragged_lens(gen, 3000, 100000), 2000, 3,
+         i64, False, f32, {}),
+        ("100,000 trailing empties, H=1", torch.cat([
+            ragged_lens(gen, 2000), torch.zeros(100000, dtype=torch.int64,
+                                                device="cuda")]), 800, 1, i32,
+         True, f32, {}),
+    ]
     rows, max_err = [], 0.0
-    for label, lens, n_src, h, idx_dtype, scaled, dtype, kw in cases:
+    for (label, lens, n_src, h, idx_dtype, scaled, dtype, kw), check_order in (
+            [(c, False) for c in cases] + [(c, True) for c in ordered]):
         src, off, idx, scale = segment_sum_case(gen, lens, n_src, h, idx_dtype,
                                                 scaled, dtype, **kw)
-        err = segment_sum_check(label, src, off, idx, scale)
+        err = segment_sum_check(label, src, off, idx, scale, check_order)
         if dtype == f32:
             max_err = max(max_err, err)
         rows.append({"case": label, "entries": int(off[-1]), "segments": len(lens),
-                     "h": h, "max_abs_err": err, "bit_identical": True})
+                     "h": h, "max_abs_err": err, "bit_identical": True,
+                     "bit_equal_ordered": check_order})
+    rows += segment_sum_strided_checks(gen)
     # subnormal terms and sums flush to zero, as index_add_'s atomics and
     # XLA's sums do (a column sum of underflowing probabilities is 0)
     from ocn_tpu_torch.ops import segment_sum as SS
@@ -815,6 +855,33 @@ def segment_sum_checks(gen):
         [0, 2, 4], device="cuda")), torch.stack([tiny[0] * 0, tiny[2] + tiny[3]]))
     rows.append({"case": "subnormal sums flush to zero", "exact": True})
     return rows, max_err, segment_sum_timing(*spmm_shape_inputs(gen), "SpMM")
+
+
+def segment_sum_strided_checks(gen):
+    """A misaligned view (x[:, 1:]) and an odd row stride take the scalar
+    path; each equals the call on a contiguous copy bit for bit (the vector
+    path at H = 64 and 256, whose order of adds is the same) and
+    segment_sum_ordered."""
+    from ocn_tpu_torch.ops import segment_sum as SS
+
+    rows = []
+    for h in (3, 64, 256):
+        lens = ragged_lens(gen, 2000, 2500)
+        off = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+        q = int(off[-1])
+        idx = torch.randint(0, 500, (q,), generator=gen, device="cuda", dtype=torch.int32)
+        base = torch.randn((500, h + 3), generator=gen, device="cuda")
+        odd = torch.randn(500 * (h + 1), generator=gen, device="cuda").as_strided(
+            (500, h), (h + 1, 1))
+        for label, x in ((f"misaligned view x[:, 1:], H={h}", base[:, 1:h + 1]),
+                         (f"odd row stride {h + 1}, H={h}", odd)):
+            err = segment_sum_check(label, x, off, idx, None, ordered=True)
+            exact(f"segment_sum {label} against a contiguous copy",
+                  SS.segment_sum_raw(x, off, idx), SS.segment_sum_raw(x.contiguous(), off, idx))
+            rows.append({"case": label, "entries": q, "segments": len(lens), "h": h,
+                         "max_abs_err": err, "bit_identical": True,
+                         "bit_equal_ordered": True, "equal_contiguous": True})
+    return rows
 
 
 def spmm_shape_inputs(gen, n=235868, nnz=1324714, h=256):
@@ -833,9 +900,12 @@ def spmm_shape_inputs(gen, n=235868, nnz=1324714, h=256):
 def segment_sum_timing(src, off, idx, scale, label):
     """segment_sum_raw on these inputs: per call, on the card alone, its
     plain version, index_add_ of the same products into the same rows (the
-    library call, the products formed outside the timing), and the bound:
-    each distinct row read once, the indices, scales and offsets once, the
-    float32 output written once."""
+    library call, the products formed outside the timing), the bound (each
+    distinct row read once, the indices, scales and offsets once, the
+    float32 output written once), and two PyTorch calls that compute the
+    whole function: torch.sparse.mm of the CSR matrix (off, idx, scale or
+    1) with src where idx is given (``csr_mm_ms``), torch.segment_reduce
+    where it is not (``segment_reduce_ms``).  The port calls none of them."""
     from ocn_tpu_torch.ops import segment_sum as SS
 
     s2 = src[:, None] if src.dim() == 1 else src
@@ -857,9 +927,31 @@ def segment_sum_timing(src, off, idx, scale, label):
               "plain_ms": cuda_time_ms(
                   lambda: SS.segment_sum_plain(src, off, idx, scale), iters=20),
               "library_ms": cuda_time_ms(lambda: out.index_add_(0, seg, msg), iters=20),
-              **bound(nbytes, 2 * q * h)}
+              **bound(nbytes, 2 * q * h), **segment_sum_yardsticks(s2, off, idx, scale)}
     del msg, out, seg
     return timing
+
+
+def segment_sum_yardsticks(s2, off, idx, scale):
+    """csr_mm_ms and segment_reduce_ms of segment_sum_timing (each null where
+    it does not apply: segment_reduce takes no row index, the CSR product
+    needs one).  Both take float32 rows; the columns of the CSR matrix are
+    idx and its width the rows of src, its values scale or ones."""
+    nseg, q = off.numel() - 1, idx.numel() if idx is not None else s2.shape[0]
+    rows = s2.float()
+    out = {"csr_mm_ms": None, "segment_reduce_ms": None}
+    if idx is not None:
+        lo, hi = int(off[0]), int(off[-1])
+        vals = (scale if scale is not None else torch.ones(q, device="cuda"))[lo:hi]
+        mat = torch.sparse_csr_tensor(off - lo, idx[lo:hi].long(), vals.float(),
+                                      size=(nseg, s2.shape[0]))
+        out["csr_mm_ms"] = cuda_time_ms(lambda: torch.sparse.mm(mat, rows), iters=20)
+    elif scale is None:
+        lo, hi = int(off[0]), int(off[-1])
+        part, rel = rows[lo:hi], off - lo
+        out["segment_reduce_ms"] = cuda_time_ms(
+            lambda: torch.segment_reduce(part, "sum", offsets=rel), iters=20)
+    return out
 
 
 def phase_kernels():
@@ -2774,6 +2866,7 @@ def segment_sum_entry(err, timing, by_phase, shapes, shapes_err):
         sum(by_phase[k] for k in SEGMENT_SUM_MAIN), max(err, shapes_err), timing,
         replaces_what="XLA's jax.ops.segment_sum(indices_are_sorted=True), "
                       "not a Pallas kernel",
+        csr_mm_ms=timing.get("csr_mm_ms"), segment_reduce_ms=timing.get("segment_reduce_ms"),
         **{f"launches_{k}": n for k, n in by_phase.items()}, model_shapes=shapes)
 
 

@@ -16,8 +16,11 @@ the JAX package, with no global switch.
 On CUDA tensors the wrapper launches ``csrc/segment_sum.cu`` (built with
 nvcc for sm_90a on first use, bound with ctypes); on CPU tensors it runs
 ``segment_sum_plain``, float32 ``index_add_`` in index order, which sums
-each segment in increasing q as the kernel does inside a tile.  A CUDA call
-launches the kernel or raises: there is no fallback.
+each segment in increasing q as the kernel does inside one share (on rows
+wider than 8, or up to 4 entries of one thread on narrower rows).  A CUDA
+call launches the kernel or raises: there is no fallback.
+``segment_sum_ordered`` repeats the kernel's own order of adds in plain
+PyTorch, for tests on small inputs only.
 ``segment_sum_raw.launches`` counts kernel launches.  ``active()`` is true
 while the wrapper runs, so that a dispatch mode can tell its own
 scatter-adds (the plain version's) from any other.
@@ -30,8 +33,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ocn_tpu_torch.utils import toolchain
@@ -56,8 +60,10 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.ocn_segment_sum.argtypes = [
-            p, i, i64, i64, p, i, p, p, i64, i64, i64, i64, p, p, p, p, p]
+            p, i, i64, i64, p, i, p, p, i64, i64, i64, i64, i64, p, p, p]
         lib.ocn_segment_sum.restype = ctypes.c_int
+        lib.ocn_segment_sum_scratch.argtypes = [i64, i64]
+        lib.ocn_segment_sum_scratch.restype = i64
         _LIB = lib
     return _LIB
 
@@ -77,10 +83,27 @@ def _inside():
         _DEPTH -= 1
 
 
-def tile_for(h: int) -> int:
-    """Entries a tile of the kernel covers: short tiles for narrow rows keep
-    enough threads busy (a thread walks a tile for one column)."""
-    return 32 if h <= 8 else (64 if h <= 32 else 128)
+# the kernel's shares (csrc/segment_sum.cu): rows of at most NARROW_COLS
+# columns take the narrow path (a block of 256 threads a share, 4 entries a
+# thread, up to 1,024 items), wider rows the wide path (a warp a share, up
+# to 192 items); (items a share, entries a cut may move back)
+NARROW_COLS = 8
+NARROW_SHARE = (768, 256)
+WIDE_SHARE = (128, 64)
+NARROW_THREADS, NARROW_PER = 256, 4
+WIDE_FIX_GROUPS = 16
+
+
+def share_for(h: int) -> Tuple[int, int]:
+    """(share, snap) of the kernel's merge-path shares at width h."""
+    return NARROW_SHARE if h <= NARROW_COLS else WIDE_SHARE
+
+
+def share_count(nseg: int, q: int, h: int) -> int:
+    """Shares the wrapper allots for nseg segments over q entries: enough
+    for any offsets (off[S] - off[0] <= q); the kernel leaves the rest
+    empty."""
+    return max(-(-(nseg + q) // share_for(h)[0]), 1)
 
 
 def out_dtype(src: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.dtype:
@@ -139,6 +162,162 @@ def segment_sum_plain(src: torch.Tensor, off: torch.Tensor,
     return out[:, 0] if flat else out
 
 
+def merge_splits(off: np.ndarray, share: int, snap: int, nshares: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's cuts (seg_partition) of the merged list of segment ends
+    and entries: for cuts 0..nshares, the ends and the entries (counted from
+    off[0]) before each.  Cut b falls after b * share items, then moves back
+    to its segment's first entry when 1..snap of its entries lie before it."""
+    off = np.asarray(off, dtype=np.int64)
+    nseg, nq = len(off) - 1, int(off[-1] - off[0])
+    d = np.minimum(np.arange(nshares + 1, dtype=np.int64) * share, nseg + nq)
+    # end i precedes entry j when off[i + 1] - off[0] <= j, so the ends among
+    # the first d items are those with off[i + 1] - off[0] + i + 1 <= d
+    key = off[1:] - off[0] + np.arange(1, nseg + 1)
+    i = np.searchsorted(key, d, side="right")
+    j = d - i
+    inside = j - (off[np.minimum(i, nseg - 1)] - off[0])
+    back = (i < nseg) & (inside > 0) & (inside <= snap)
+    return i, np.where(back, j - inside, j)
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """Subnormal values to zeros of their sign, as add.rn.ftz/mul.rn.ftz
+    flush their inputs and results."""
+    return torch.where(t.abs() < torch.finfo(t.dtype).tiny, t * 0.0, t)
+
+
+def _fold(terms: torch.Tensor, h: int) -> torch.Tensor:
+    """The terms' sum from 0 in increasing q (one column a lane, wide path)."""
+    acc = torch.zeros(h)
+    for row in terms:
+        acc = _ftz(acc + row)
+    return acc
+
+
+def _narrow_share(terms: torch.Tensor, ends: np.ndarray) -> torch.Tensor:
+    """Each entry's final running sum in one narrow share (seg_narrow):
+    ``terms`` (nj, H) in q order, ``ends`` the share's segment ends (and the
+    first one's start) counted from its first entry."""
+    nj, h = terms.shape
+    nt, per = NARROW_THREADS, NARROW_PER
+    x = torch.zeros(nt * per, h)
+    x[:nj] = terms
+    head = torch.zeros(nt * per, dtype=torch.bool)
+    head[0] = True
+    p = ends[1:]
+    head[torch.as_tensor(p[(p > 0) & (p < nj)], dtype=torch.int64)] = True
+    e = torch.arange(nt)[:, None] * per + torch.arange(per)
+    valid = e < nj
+    # each thread's entries, from 0 at its first entry and at every head
+    acc = torch.zeros(nt, h)
+    first_head = torch.full((nt,), per)
+    run = torch.zeros(nt, per, h)
+    for r in range(per):
+        hd = head[e[:, r]] & valid[:, r]
+        first_head = torch.where(hd & (first_head == per), r, first_head)
+        base = acc if r > 0 else torch.zeros(nt, h)
+        new = _ftz(torch.where(hd[:, None], 0.0, base) + x[e[:, r]])
+        acc = torch.where(valid[:, r, None], new, acc)
+        run[:, r] = acc
+    # the threads' sums: Hillis-Steele over the lanes, segmented at the
+    # threads that hold a head, then in order over the warps
+    lane, warp = torch.arange(nt) % 32, torch.arange(nt) // 32
+    hw = (first_head < per).view(-1, 32)
+    below = (torch.cumsum(hw.int(), 1) > 0).view(-1)
+    start = torch.cummax(torch.where(hw, torch.arange(32), 0), 1).values.view(-1)
+    for d in (1, 2, 4, 8, 16):
+        y = torch.zeros_like(acc).view(-1, 32, h)
+        y[:, d:] = acc.view(-1, 32, h)[:, :-d]
+        acc = torch.where(((lane - d) >= start)[:, None], _ftz(y.view(-1, h) + acc), acc)
+    wtot = acc.view(-1, 32, h)[:, 31]
+    cin = torch.zeros(nt // 32, h)
+    c = wtot[0]
+    cin[1] = c
+    for ww in range(2, nt // 32):
+        c = wtot[ww - 1] if hw[ww - 1].any() else _ftz(c + wtot[ww - 1])
+        cin[ww] = c
+    acc = torch.where(((warp > 0) & ~below)[:, None], _ftz(cin[warp] + acc), acc)
+    before = torch.cat([torch.zeros(1, h), acc[:-1]])
+    before[lane == 0] = cin[warp[lane == 0]]
+    later = torch.arange(nt) > 0
+    vals = torch.stack([torch.where((later & (r < first_head))[:, None],
+                                    _ftz(before + run[:, r]), run[:, r])
+                        for r in range(per)], 1)
+    return vals.reshape(nt * per, h)[:nj]
+
+
+def segment_sum_ordered(src: torch.Tensor, off: torch.Tensor,
+                        idx: Optional[torch.Tensor] = None,
+                        scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """segment_sum_raw's sums with the kernel's own order of adds, in plain
+    PyTorch on the CPU, for tests on small inputs (a Python loop over the
+    shares and the wide path's entries); never on the main path.
+
+    The order (csrc/segment_sum.cu): merge-path shares (merge_splits); on
+    rows wider than NARROW_COLS each column of a share's piece of a segment
+    summed from 0 in increasing q; on narrower rows 4 entries a thread from
+    0, the threads' sums in a segmented Hillis-Steele scan over the lanes
+    and in order over the warps (_narrow_share); a segment that crosses
+    shares gets its pieces in share order, group g of G adding pieces g,
+    g + G, ... and the groups meeting in a binary tree.  Products and sums
+    flush subnormals to zero (_ftz).  The result equals the kernel's bit
+    for bit."""
+    flat = src.dim() == 1
+    s2 = src[:, None] if flat else src
+    nseg, h = off.numel() - 1, s2.shape[1]
+    q = idx.numel() if idx is not None else s2.shape[0]
+    want = out_dtype(src, scale)
+    if nseg == 0:
+        return torch.zeros(src.shape[:0] if flat else (0, h), dtype=want, device=src.device)
+    offs = off.cpu().numpy().astype(np.int64)
+    rows = _ftz((s2 if idx is None else s2[idx.long()]).float().cpu())
+    terms = rows if scale is None else _ftz(_ftz(scale.float().cpu())[:, None] * rows)
+    share, snap = share_for(h)
+    nshares = share_count(nseg, q, h)
+    cut_i, cut_j = merge_splits(offs, share, snap, nshares)
+    narrow = h <= NARROW_COLS
+    out = torch.zeros(nseg, h)
+    carry = torch.zeros(nshares, h)
+    carry_seg = np.full(nshares, -1)
+    for b in range(nshares):
+        i0, i1 = int(cut_i[b]), int(cut_i[b + 1])
+        q0, nj = int(offs[0] + cut_j[b]), int(cut_j[b + 1] - cut_j[b])
+        if narrow and nj:
+            vals = _narrow_share(terms[q0:q0 + nj], offs[i0:i1 + 1] - q0)
+        for k in range(i0, i1):
+            st, e = int(offs[k]), int(offs[k + 1])
+            if st == e or e <= q0:
+                continue
+            out[k] = vals[e - 1 - q0] if narrow else _fold(terms[max(st, q0):e], h)
+        if nj and i1 < nseg and offs[i1] < q0 + nj:
+            carry[b] = vals[nj - 1] if narrow else _fold(
+                terms[max(int(offs[i1]), q0):q0 + nj], h)
+            carry_seg[b] = i1
+    groups = NARROW_THREADS // (1 << (h - 1).bit_length()) if narrow else WIDE_FIX_GROUPS
+    for b in range(nshares):
+        s = int(carry_seg[b])
+        if s < 0 or (b > 0 and carry_seg[b - 1] == s):
+            continue
+        m = int(np.searchsorted(cut_i, s, side="right")) - 1 - b
+        pieces: List[torch.Tensor] = [carry[b + k] for k in range(m)] + [out[s]]
+        ng = min(groups, m + 1)
+        red = []
+        for g in range(ng):
+            acc = pieces[g]
+            for k in range(g + groups, m + 1, groups):
+                acc = _ftz(acc + pieces[k])
+            red.append(acc)
+        half = 1 << max(ng - 1, 0).bit_length() >> 1
+        while half:
+            for g in range(min(half, ng - half)):
+                red[g] = _ftz(red[g] + red[g + half])
+            half //= 2
+        out[s] = red[0]
+    out = out.to(device=src.device, dtype=want)
+    return out[:, 0] if flat else out
+
+
 def _launch(src, off, idx, scale) -> torch.Tensor:
     dev = src.device
     tensors = [t for t in (src, off, idx, scale) if t is not None]
@@ -166,17 +345,18 @@ def _launch(src, off, idx, scale) -> torch.Tensor:
     out = torch.empty(nseg, h, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    tile = tile_for(h)
-    ntiles = max(-(-q // tile), 1)
-    head = torch.empty(ntiles, h, dtype=torch.float32, device=dev)
-    tail = torch.empty_like(head)
-    tail_seg = torch.empty(ntiles, dtype=torch.int64, device=dev)
+    share, snap = share_for(h)
+    nshares = share_count(nseg, q, h)
+    lib = _lib()
+    # the cuts, each share's carried segment and row, in one allocation
+    scratch = torch.empty(lib.ocn_segment_sum_scratch(nshares, h), dtype=torch.int64,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().ocn_segment_sum(
+    err = lib.ocn_segment_sum(
         s2.data_ptr(), int(s2.dtype == torch.bfloat16), s2.stride(0), s2.stride(1),
         0 if idx is None else idx.data_ptr(), 0 if idx is None else idx.element_size(),
-        0 if scale is None else scale.data_ptr(), off.data_ptr(), nseg, q, h, tile,
-        out.data_ptr(), head.data_ptr(), tail.data_ptr(), tail_seg.data_ptr(), stream)
+        0 if scale is None else scale.data_ptr(), off.data_ptr(), nseg, h, share, snap,
+        nshares, out.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error {err}")
     segment_sum_raw.launches += 1

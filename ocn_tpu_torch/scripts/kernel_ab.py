@@ -1,8 +1,8 @@
-"""Time the membership and window-gather kernels of one checkout of the
-port on one card, so that two checkouts (a commit and its parent) can be
-compared.
+"""Time the membership, window-gather and segment-sum kernels of one
+checkout of the port on one card, so that two checkouts (a commit and its
+parent) can be compared.
 
-    python ocn_tpu_torch/scripts/kernel_ab.py --root DIR
+    python ocn_tpu_torch/scripts/kernel_ab.py --root DIR [--only segment_sum]
 
 imports ``ocn_tpu_torch`` from the checkout at DIR (its wrappers and its
 kernels, built into DIR's own ``ocn_tpu_torch/_build/``) and times it with
@@ -16,7 +16,19 @@ this checkout's ``utils/profiling.py``, on the same inputs whatever DIR is
   table of the full-width slice (1,324,714 x 256), with int64 starts as
   ops/frame.py passes them (column 0 of the (B, K) positions, a strided
   view) and at (4096, 64) with contiguous int32 starts as chip_smoke.py
-  times it; and (4096, 64) on the instrument's bfloat16 table.
+  times it; and (4096, 64) on the instrument's bfloat16 table;
+* ``segment_sum_raw`` at the main path's four shapes (entries, segments,
+  H): the graph's row sums (1,324,714, 235,868, 1; values, no idx), the
+  frame-matmul dx at (65,536, 235,868, 256) (4,096 targets x 16 lanes of
+  a random graph, lane k of a target with fewer than k + 1 neighbours on
+  the sentinel node n - 1 as ops/frame.py puts it, sorted by node), the
+  encoder SpMM (1,324,714, 235,868, 256; rows sorted, int32 columns,
+  float32 values) and the column sums at (65,536, 65,536, 3) (the same
+  frame's ids ranked, three planes read through their strides, trailing
+  empty ranks).  Here ``device_ms`` is the card's time a call (CUDA events
+  around 50 calls queued behind a spin, utils/profiling.py
+  queued_device_ms) and ``device_ms_per_call`` sums every kernel a call
+  launches.
 
 For each: ``ms``, the wrapper's per-call time (CUDA events over 200 calls);
 ``kernel_ms``, the device time of the named kernel alone per launch
@@ -49,6 +61,8 @@ WINDOW_CASES = (
     ("bf16 K=64 int32", 1_320_618, "bfloat16", 4096, 64, "int32"),
 )
 ITERS = 50
+KERNELS = ("membership", "window", "segment_sum")
+N_NODES, NNZ = 235_868, 1_324_714
 
 
 def load_profiling():
@@ -83,7 +97,20 @@ def timed(torch, profiling, fn, pattern):
             "kernel_launches": len(hits),
             "device_ms_per_call": sum(t1 - t0 for _, t0, t1 in acts) / ITERS / 1e3,
             "activities_per_call": len(acts) / ITERS,
-            "activity_names": sorted({name[:60] for name, _, _ in acts})}
+            "activity_names": sorted({name[:60] for name, _, _ in acts}),
+            "ms_by_kernel": by_kernel(acts)}
+
+
+def by_kernel(acts):
+    """Device ms a launch of each kernel (its first name after a
+    namespace, else its first 40 characters)."""
+    ms, count = {}, {}
+    for name, t0, t1 in acts:
+        found = re.search(r"::(\w+)", name)
+        key = found.group(1) if found else name[:40]
+        ms[key] = ms.get(key, 0.0) + (t1 - t0) / 1e3
+        count[key] = count.get(key, 0) + 1
+    return {key: ms[key] / count[key] for key in ms}
 
 
 def membership(torch, profiling):
@@ -138,10 +165,69 @@ def window(torch, profiling):
     return out
 
 
+def frame_ids(np, seed, rows=4096, lanes=16):
+    """(rows * lanes,) node ids of a frame: each target's neighbours (a
+    geometric degree of mean 5.6, the collab stand-in's) in its first lanes,
+    the sentinel n - 1 in the rest."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.geometric(1 / 5.6, size=rows), lanes)
+    ids = rng.integers(0, N_NODES - 1, size=(rows, lanes))
+    ids[np.arange(lanes)[None, :] >= deg[:, None]] = N_NODES - 1
+    return ids.reshape(-1)
+
+
+def segment_sum_inputs(torch, np, SS):
+    """(label, (src, off, idx, scale)) of the four shapes, from fixed seeds."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    row = torch.sort(torch.randint(0, N_NODES, (NNZ,), generator=gen, device="cuda")).values
+    graph_off = SS.sorted_offsets(row, N_NODES)
+    val = torch.rand(NNZ, generator=gen, device="cuda")
+    col = torch.randint(0, N_NODES, (NNZ,), generator=gen, device="cuda", dtype=torch.int32)
+    x = torch.randn((N_NODES, 256), generator=gen, device="cuda")
+    ids = torch.as_tensor(frame_ids(np, 1), device="cuda")
+    perm, node_off = SS.sort_segments(ids, N_NODES)
+    coef = torch.randn((ids.numel(), 256), generator=gen, device="cuda")
+    # ranks of the distinct ids in sorted order: M + 1 offsets, every one
+    # past the last rank equal to M
+    srt = ids[perm]
+    rank = torch.cumsum(torch.cat([srt.new_zeros(1), (srt[1:] != srt[:-1]).long()]), 0)
+    rank_off = SS.sorted_offsets(rank, ids.numel())
+    planes = torch.randn((3, ids.numel()), generator=gen, device="cuda")
+    return [("row sums", (val, graph_off, None, None)),
+            ("frame dx", (coef, node_off, perm, None)),
+            ("SpMM", (x, graph_off, col, val)),
+            ("column sums", (planes.T, rank_off, perm, None))]
+
+
+def segment_sum(torch, profiling):
+    import numpy as np
+
+    from ocn_tpu_torch.ops import segment_sum as SS
+
+    out = []
+    for label, (src, off, idx, scale) in segment_sum_inputs(torch, np, SS):
+        got = SS.segment_sum_raw(src, off, idx, scale)
+        sc = None if scale is None else scale.double()
+        want = SS.segment_sum_plain(src.double(), off, idx, sc)
+        mag = SS.segment_sum_plain(src.double().abs(), off, idx,
+                                   None if sc is None else sc.abs())
+        if not bool(((got.double() - want).abs() <= 1e-5 * mag + 1e-30).all()):
+            raise AssertionError(f"segment_sum {label}: differs from plain")
+        q = idx.numel() if idx is not None else src.shape[0]
+        fn = lambda: SS.segment_sum_raw(src, off, idx, scale)  # noqa: E731
+        out.append({"case": label,
+                    "shape": [q, off.numel() - 1, src.shape[1] if src.dim() == 2 else 1],
+                    "device_ms": profiling.queued_device_ms(fn),
+                    **timed(torch, profiling, fn, r"seg_")})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
                     help="root of the checkout whose kernels are timed")
+    ap.add_argument("--only", nargs="+", choices=KERNELS, default=list(KERNELS),
+                    help="the kernels to time (default: all)")
     args = ap.parse_args()
     import torch
 
@@ -158,9 +244,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    runs = {"membership": membership, "window": window, "segment_sum": segment_sum}
     print(json.dumps({"root": args.root, "nvidia_smi": smi,
-                      "membership": membership(torch, profiling),
-                      "window": window(torch, profiling)}), flush=True)
+                      **{k: runs[k](torch, profiling) for k in args.only}}), flush=True)
     return 0
 
 

@@ -5,7 +5,7 @@ kernel), and where the device time of a training step goes
 
 Kernels launched from the port's ctypes libraries appear in the profiler's
 trace under their CUDA names (``window_rows_kernel``, ``membership_kernel``,
-``seg_tiles``, ...), like PyTorch's own.  ``chip_smoke.py`` reads these numbers; the CUDA
+``seg_wide``, ...), like PyTorch's own.  ``chip_smoke.py`` reads these numbers; the CUDA
 events it also takes without a spin time whole calls, wrapper included.
 ``chrome_trace`` is the CLI's ``--profile_dir``: a region's trace as a
 file, the counterpart of ``jax.profiler.trace``.
@@ -117,7 +117,8 @@ def top_kernels(intervals: Sequence[Interval], n: int = 10,
 # kernel's name): the port's sorted segment sum (csrc/segment_sum.cu), and
 # PyTorch's index kernels (index_add_ and index_copy_ among them) and
 # scatters, the atomic scatter-adds it replaced
-KERNEL_CLASSES = {"segment_sum": ("seg_tiles", "seg_spans"),
+KERNEL_CLASSES = {"segment_sum": ("seg_partition", "seg_narrow", "seg_wide",
+                                  "seg_fixup"),
                   "index_kernels": ("indexFunc",),
                   "scatter_kernels": ("scatter",)}
 

@@ -509,6 +509,100 @@ def test_segment_sum_wrapper_rejects(cuda):
         tss.segment_sum_raw(src, off, None, torch.ones(3, device=cuda))
 
 
+def _held(src, off_t, idx=None, scale=None, ordered=True):
+    """The kernel on these inputs: two calls bit-identical, within rtol 1e-5
+    (1e-2 with bfloat16 rows) of the sum of the terms' magnitudes of its
+    plain version in float64, and, where ``ordered``, bit for bit the
+    sums of segment_sum_ordered (the kernel's order written out on the
+    CPU)."""
+    got = tss.segment_sum_raw(src, off_t, idx, scale)
+    again = tss.segment_sum_raw(src, off_t, idx, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    sc = None if scale is None else scale.double()
+    want = tss.segment_sum_plain(src.double(), off_t, idx, sc)
+    mag = tss.segment_sum_plain(src.double().abs(), off_t, idx,
+                                None if sc is None else sc.abs())
+    rtol = 1e-2 if src.dtype == torch.bfloat16 else 1e-5
+    assert bool(((got.double() - want).abs() <= rtol * mag + 1e-30).all())
+    if ordered:
+        ref = tss.segment_sum_ordered(src.cpu(), off_t.cpu(),
+                                      None if idx is None else idx.cpu(),
+                                      None if scale is None else scale.cpu())
+        assert torch.equal(_bits(got.cpu()), _bits(ref))
+    return got
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 4, 5, 8, 31, 32, 33, 255, 256, 257])
+def test_segment_sum_widths(cuda, h):
+    """Both paths (narrow to H = 8, wide above; 16-byte rows where H allows
+    it, else 4 bytes a lane) at every width: hubs that cross shares, runs of
+    empty segments, entries before and after every segment; bit for bit the
+    ordered sums."""
+    rng = np.random.default_rng(100 + h)
+    off, tail = _segments(rng, 1500, 3000, lead=3, tail=5)
+    q = int(off[-1]) + tail
+    src = torch.as_tensor(rng.standard_normal((700, h)), device=cuda).float()
+    idx = torch.as_tensor(rng.integers(0, 700, size=q), device=cuda)
+    scale = torch.as_tensor(rng.standard_normal(q), device=cuda).float()
+    _held(src, torch.as_tensor(off, device=cuda), idx, scale)
+
+
+@pytest.mark.parametrize("h", [3, 64, 256])
+def test_segment_sum_strided_rows(cuda, h):
+    """A misaligned view (x[:, 1:]) and an odd row stride take the scalar
+    path; they equal the contiguous call (the vector path where H allows)
+    bit for bit."""
+    rng = np.random.default_rng(7 + h)
+    off, _ = _segments(rng, 2000, 2500)
+    off_t = torch.as_tensor(off, device=cuda)
+    q = int(off[-1])
+    base = torch.as_tensor(rng.standard_normal((500, h + 3)), device=cuda).float()
+    idx = torch.as_tensor(rng.integers(0, 500, size=q), device=cuda).int()
+    view = base[:, 1:h + 1]
+    odd = torch.as_tensor(rng.standard_normal((500 * (h + 1),)), device=cuda).float()
+    odd = odd.as_strided((500, h), (h + 1, 1))
+    for x in (view, odd):
+        got = _held(x, off_t, idx)
+        assert torch.equal(got, tss.segment_sum_raw(x.contiguous(), off_t, idx))
+
+
+@pytest.mark.parametrize("h", [256, 264])
+def test_segment_sum_bf16_rows(cuda, h):
+    """bfloat16 rows, 8 values in a 16-byte load (H = 264 = 33 vectors: one
+    lane holds two)."""
+    rng = np.random.default_rng(h)
+    off, _ = _segments(rng, 1200, 2000)
+    q = int(off[-1])
+    src = torch.as_tensor(rng.standard_normal((900, h)), device=cuda).bfloat16()
+    idx = torch.as_tensor(rng.integers(0, 900, size=q), device=cuda)
+    scale = torch.as_tensor(rng.standard_normal(q), device=cuda).float()
+    _held(src, torch.as_tensor(off, device=cuda), idx, scale)
+    rows = torch.as_tensor(rng.standard_normal((q, h)), device=cuda).bfloat16()
+    assert _held(rows, torch.as_tensor(off, device=cuda)).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("h", [3, 256])
+def test_segment_sum_long_segment_and_trailing_empties(cuda, h):
+    """A segment of 400,000 entries that many share cuts fall inside (the
+    frames' sentinel lanes), then 100,000 empty segments at the end (the
+    column sums' trailing ranks): the empties 0."""
+    rng = np.random.default_rng(11)
+    lens = np.concatenate([rng.integers(0, 5, size=3000), [400000],
+                           rng.integers(0, 5, size=3000), np.zeros(100000, np.int64)])
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    q = int(off[-1])
+    off_t = torch.as_tensor(off, device=cuda)
+    src = torch.as_tensor(rng.standard_normal((2000, h)), device=cuda).float()
+    idx = torch.as_tensor(rng.integers(0, 2000, size=q), device=cuda)
+    got = _held(src, off_t, idx, ordered=h <= tss.NARROW_COLS)
+    assert not got[-100000:].any()
+
+
 @pytest.mark.parametrize("pred", ["cn5", "cn3"])
 def test_one_seed_one_result_on_the_card(cuda, pred):
     """Two runs of two epochs from one seed on the card give the same
