@@ -86,7 +86,14 @@ and the script exits nonzero:
              the PyTorch call that computes the whole function
              (torch.sparse.mm with a row index, torch.segment_reduce
              without).
-6b. determinism - one seed, one result: bench_slice's program (three steps
+6b. captured_step - bench_slice's program eager (Trainer(...,
+             capture=False)) and through its captured step program
+             (ocn_tpu_torch/train/step_graph.py: the first step eager, the
+             second captured as a CUDA graph and replayed, then replays):
+             three steps each, every loss, parameter, buffer and Adam moment
+             equal bit for bit, the same membership and segment-sum launches
+             a step (counted through the replays), and both step profiles.
+6c. determinism - one seed, one result: bench_slice's program (three steps
              and one evaluate), arm 1 of the accuracy study (all 24 epochs
              through run_one) and one family_slice cn3 step, each run twice
              from seed 0 in fresh objects: every loss, parameter, buffer,
@@ -94,7 +101,7 @@ and the script exits nonzero:
              the bits), with no global switch.  A program that differs is
              run twice more with a checksum of every aten op's output, which
              names the first op apart, and the phase fails.
-6c. mesh_slice - bench_slice's program (BENCH_PATH, the same batches) at
+6d. mesh_slice - bench_slice's program (BENCH_PATH, the same batches) at
              dp_devices 2 x tp_devices 2: four ranks (parallel/launch.py)
              sharing the card over gloo (NCCL takes one rank a card; the
              rule is fixed before launch and printed), each scoring its dp
@@ -103,7 +110,7 @@ and the script exits nonzero:
              held against bench_slice's (step 1 rtol 1e-4, all 1e-3); per
              rank the step ms, peak GB, membership launches and the
              collectives' calls and bytes by op.
-6d. node_sharded_slice - the same program with graph_sharding "node" on
+6e. node_sharded_slice - the same program with graph_sharding "node" on
              two ranks, the eval splits cut to EVAL_CUT rows: graph shards,
              ELL shards, the dual-K split with the round-robin interleave,
              sharded eval.  Each rank's graph bytes on the card against the
@@ -130,12 +137,12 @@ and the script exits nonzero:
              steps and one evaluate, membership exactly twice a step at
              2 * 65536 rows, the step's one group re-scored.
 10. variants_slice - bench.py's program with cn1, cn8, cn9 and cn5 with
-             cndeg 32: one step and one evaluate each; then one train_epoch
+             cndeg 32: two steps and one evaluate each; then one train_epoch
              of cn2 (family_slice's cut train split, three steps) at epoch 7
              with increasealpha, whose alpha2 must read 0.2.
 11. presets_slice - each of the 16 README preset keys, presets(dataset,
-             predictor): a fresh Trainer, one step and one evaluate (MRR for
-             citation2), Cora, Citeseer, Pubmed, ddi and collab at synthetic
+             predictor): a fresh Trainer, two steps on one batch and one
+             evaluate (MRR for citation2), Cora, Citeseer, Pubmed, ddi and collab at synthetic
              scale 1.0, ppa and citation2 at PRESET_SCALE; every split cut
              to its first EVAL_CUT rows (MRR: PRESET_MRR_CUT sources).
 12. family_slice - the incomplete family on bench.py's program with
@@ -228,6 +235,10 @@ and the script exits nonzero:
 
 The datasets of phases 13-15b are made in three worker processes while the
 card runs phases 1-12d; their lines give the workers' seconds and the wait.
+A single-device Trainer's steps run through its step program: on the card
+each trainer's first step is eager and every later one a replay of its
+captured graph, which each model phase checks and prints (``program``:
+captured, the capture's seconds, replays); the rank phases stay eager.
 Every model phase prints step_ms, losses, train_edges_per_s, eval_s, hits
 (or mrr), its membership launches (per step, in eval, by shape), its
 segment-sum launches (per step, in eval) and peak device memory (train and eval apart where both run); the phases on new
@@ -1173,9 +1184,20 @@ def step_batches(tr, ds, nsteps=3):
     return pos, neg, [perm[i * bs:(i + 1) * bs] for i in range(nsteps)]
 
 
-def run_steps(tr, state, pos, neg, batches, gen):
+# True while op_checksums builds every Trainer eager
+EAGER_TRAINERS = [False]
+
+
+def run_steps(tr, state, pos, neg, batches, gen, eager=False):
     """Timed training steps (host clock around train_step, which ends in
-    loss.item()); returns (state, step_ms, losses)."""
+    loss.item()); returns (state, step_ms, losses).  On the card a
+    single-device trainer's steps must run through its captured program
+    (train/step_graph.py): the first step of a program is its warm-up, every
+    later one a replay of its graph; ``eager``: a trainer built with
+    capture=False (captured_step's reference)."""
+    eager = eager or EAGER_TRAINERS[0]
+    prog = tr._program
+    fresh, replays = prog is not None and prog._held is None, prog and prog.replays
     step_ms, losses = [], []
     for idx in batches:
         inputs = tr.prepare_batch(pos[:, idx], neg[:, idx], idx)
@@ -1186,7 +1208,24 @@ def run_steps(tr, state, pos, neg, batches, gen):
         step_ms.append(1e3 * (time.perf_counter() - ts))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss {losses}")
+    if DEVICE == "cuda" and prog is not None:
+        want = len(batches) - fresh if prog.capture else 0
+        if prog.capture == eager or prog.replays - replays != want:
+            raise AssertionError(
+                f"step program: capture {prog.capture} (eager asked: {eager}), "
+                f"{prog.replays - replays} replays in {len(batches)} steps, "
+                f"expected {want}")
     return state, step_ms, losses
+
+
+def program_record(tr):
+    """The step program of a single-device trainer: captured or eager, the
+    capture's host seconds, its replays so far."""
+    prog = tr._program
+    if prog is None:
+        return {"captured": False}
+    return {"captured": prog.capture, "capture_s": prog.capture_s,
+            "replays": prog.replays}
 
 
 def check_hits(results):
@@ -1228,6 +1267,7 @@ def phase_slice(ds, t_data, **overrides):
     W.window_rows.launches = 0
     state, step_ms, losses = run_steps(tr, state, pos, neg, batches, gen)
     train_launches = membership_counts.launches
+    program = program_record(tr)
     chunks_per_step = 2 * cfg.batch_size // tr._chunk()
     if train_launches < 2 * chunks_per_step * len(batches):
         raise AssertionError(
@@ -1252,7 +1292,7 @@ def phase_slice(ds, t_data, **overrides):
           "adj2_nnz": tr.adj2.nnz, "step_ms": step_ms,
           # links scored per second (positives and negatives), as bench.py
           "train_edges_per_s": [2e3 * cfg.batch_size / ms for ms in step_ms],
-          "losses": losses,
+          "losses": losses, "program": program,
           "membership_launches_train": train_launches,
           "membership_launches_total": launches,
           "window_launches_total": window_launches, "eval_s": t_eval,
@@ -1432,16 +1472,65 @@ def phase_bench_slice(ds, **overrides):
             + evals["membership_launches_eval"]), shapes, train["losses"]
 
 
+def phase_captured_step(ds, **overrides):
+    """bench_slice's program twice on the same batches from seed 0: eager
+    (Trainer(..., capture=False)) and captured (the default: the first step
+    a warm-up, the second captured as a CUDA graph and replayed, the third
+    a replay; train/step_graph.py), three steps each, then a fourth under
+    the profiler.  The three steps' losses, every parameter, buffer (the EMA)
+    and Adam moment after them must be equal bit for bit, and the membership
+    and segment-sum launches a step equal (the captured ones counted
+    through the replays); both step profiles are kept, side by side."""
+    from ocn_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg = slice_config(**{**BENCH_PATH, **overrides})
+    out, held = {}, {}
+    for mode in ("eager", "captured"):
+        t1 = time.perf_counter()
+        tr = Trainer(cfg, ds, device=DEVICE, capture=mode == "captured")
+        state = tr.init_state(0)
+        tr._refresh_ell(np.random.default_rng(1))
+        pos, neg, batches = step_batches(tr, ds, nsteps=4)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        state, train, _ = drive_steps(tr, state, pos, neg, batches[:3], gen,
+                                      eager=mode == "eager")
+        held[mode] = {k: v.detach().cpu().clone()
+                      for k, v in _state_tensors(state).items()}
+        held[mode].update({f"loss.{i}": torch.tensor(x, dtype=torch.float64)
+                           for i, x in enumerate(train["losses"])})
+        profile = profile_step(tr, state, pos, neg, batches[3], gen)
+        out[mode] = {"seconds": time.perf_counter() - t1, **train,
+                     "program": program_record(tr), "step_profile": profile}
+        del tr, state
+        torch.cuda.empty_cache()
+    miss = first_mismatch(held["eager"], held["captured"])
+    emit({"phase": "captured_step", "seconds": time.perf_counter() - t0,
+          "tensors": len(held["eager"]), "first_mismatch": miss, **out})
+    if miss is not None:
+        raise AssertionError(f"captured_step: the captured step differs from "
+                             f"the eager one at {miss}")
+    for key in ("membership_launches_per_step", "segment_sum_launches_per_step"):
+        if out["eager"][key] != out["captured"][key]:
+            raise AssertionError(f"captured_step: {key} eager {out['eager'][key]}, "
+                                 f"captured {out['captured'][key]}")
+    return out
+
+
 @contextlib.contextmanager
 def captured_segment_sums():
     """The first segment-sum launch of each (site, entries, segments,
     columns) in a region, its inputs cloned, for timing the kernel at the
-    shapes the main path gives it.  The site is the first caller outside
-    ops/segment_sum.py and torch's autograd, as file:function."""
+    shapes the main path gives it, and the launches of each, kept as
+    seen[("launches",) + key].  The site is the first caller outside
+    ops/segment_sum.py and torch's autograd, as file:function.  The launches
+    are counted in a Counter that the step program advances on each replay
+    (step_graph.EXTRA_COUNTERS), as it advances the wrapper's own count."""
     from ocn_tpu_torch.ops import segment_sum as SS
+    from ocn_tpu_torch.train import step_graph
 
     launch, plain = SS._launch, SS.segment_sum_plain
-    seen = {}
+    seen, launches = {}, collections.Counter()
 
     def capturing(fn):
         def run(src, off, idx=None, scale=None):
@@ -1456,16 +1545,19 @@ def captured_segment_sums():
             if key not in seen:
                 seen[key] = tuple(None if t is None else t.detach().clone()
                                   for t in (src, off, idx, scale))
-            seen[("launches",) + key] = seen.get(("launches",) + key, 0) + 1
+            launches[key] += 1
             return fn(src, off, idx, scale)
         return run
 
     # the card's calls reach _launch, the CPU's (a rehearsal) the plain version
     SS._launch, SS.segment_sum_plain = capturing(launch), capturing(plain)
+    step_graph.EXTRA_COUNTERS.append(launches)
     try:
         yield seen
     finally:
         SS._launch, SS.segment_sum_plain = launch, plain
+        step_graph.EXTRA_COUNTERS.remove(launches)
+        seen.update({("launches",) + key: n for key, n in launches.items()})
 
 
 def phase_segment_sum_shapes(calls):
@@ -1550,11 +1642,18 @@ def first_mismatch(a, b):
 def op_checksums(prog):
     """Run ``prog`` under a dispatch mode that keeps, for every floating
     point output of every aten op, the op's name and the float64 sum of the
-    output, in the order the ops ran (forward and backward)."""
+    output, in the order the ops ran (forward and backward).  Its Trainers
+    step eagerly: a replayed graph dispatches no op."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
+    from ocn_tpu_torch.train.loop import Trainer
+
     names, sums = [], []
+    init = Trainer.__init__
+
+    def eager_init(self, *args, **kw):
+        init(self, *args, **{**kw, "capture": False})
 
     class Checksums(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -1565,8 +1664,14 @@ def op_checksums(prog):
                     sums.append(t.detach().double().sum())
             return out
 
-    with recorded_program(), Checksums():
-        prog()
+    Trainer.__init__ = eager_init
+    EAGER_TRAINERS[0] = True
+    try:
+        with recorded_program(), Checksums():
+            prog()
+    finally:
+        Trainer.__init__ = init
+        EAGER_TRAINERS[0] = False
     return names, torch.stack(sums).cpu() if sums else torch.zeros(0)
 
 
@@ -1976,10 +2081,11 @@ def shape_list(counter):
     return [[*shape, n] for shape, n in sorted(counter.items())]
 
 
-def drive_steps(tr, state, pos, neg, batches, gen):
-    """Timed training steps one at a time, membership launches counted per
-    step and by (rows, Kq, Ks), segment-sum launches per step; returns
-    (state, record, shapes)."""
+def drive_steps(tr, state, pos, neg, batches, gen, eager=False):
+    """Timed training steps one at a time (run_steps), membership launches
+    counted per step and by (rows, Kq, Ks), segment-sum launches per step,
+    counted through the replays of a captured step; returns (state, record,
+    shapes)."""
     from ocn_tpu_torch.ops.membership import membership_counts
     from ocn_tpu_torch.ops.segment_sum import segment_sum_raw
 
@@ -1989,7 +2095,7 @@ def drive_steps(tr, state, pos, neg, batches, gen):
     for idx in batches:
         membership_counts.launches = 0
         seg0 = segment_sum_raw.launches
-        state, ms, loss = run_steps(tr, state, pos, neg, [idx], gen)
+        state, ms, loss = run_steps(tr, state, pos, neg, [idx], gen, eager)
         per_step.append(membership_counts.launches)
         seg_per_step.append(segment_sum_raw.launches - seg0)
         step_ms += ms
@@ -2001,6 +2107,7 @@ def drive_steps(tr, state, pos, neg, batches, gen):
         "losses": losses, "membership_launches_per_step": per_step,
         "segment_sum_launches_per_step": seg_per_step,
         "membership_shapes_train": shape_list(shapes),
+        "program": program_record(tr),
         "peak_mem_train_gb": torch.cuda.max_memory_allocated() / 1e9}, shapes
 
 
@@ -2205,7 +2312,8 @@ def phase_hoist_slice(ds, nsteps=3, **overrides):
 
 def phase_variants_slice(ds, **overrides):
     """bench.py's program with OCN_BENCH_PREDICTOR = cn1, cn8 and cn9, and
-    cn5 with cndeg 32: one step and one evaluate each (cn1 and cn9 carry two
+    cn5 with cndeg 32: two steps (the step program's warm-up, then its
+    capture and replay) and one evaluate each (cn1 and cn9 carry two
     (n_nodes, hidden) one-hot weights).  Then cn2 on the family's program
     with increasealpha: one train_epoch at epoch 7 over family_slice's cut
     train split, after which alpha2 must read the ramp's 0.2."""
@@ -2222,7 +2330,7 @@ def phase_variants_slice(ds, **overrides):
         state = tr.init_state(0)
         tr._refresh_ell(np.random.default_rng(1))
         if batches is None:
-            pos, neg, batches = step_batches(tr, ds, 1)
+            pos, neg, batches = step_batches(tr, ds, 2)
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         state, train, s_train = drive_steps(tr, state, pos, neg, batches, gen)
         evals, s_eval = timed_eval(tr, state)
@@ -2498,7 +2606,8 @@ def phase_spd_slice(ds, nsteps=3, **overrides):
 def phase_presets_slice(datasets, scale=1.0, large_scale=PRESET_SCALE,
                         eval_cut=EVAL_CUT, mrr_cut=PRESET_MRR_CUT, **overrides):
     """Each README preset key: a fresh Trainer on presets(dataset,
-    predictor), one step on one batch from prepare_batch, then evaluate
+    predictor), two steps on one batch from prepare_batch (the step
+    program's warm-up, then its capture and replay), then evaluate
     (evaluate_mrr for citation2).  ``datasets`` holds the ones built
     already (their splits whole); the others are made at ``scale`` (ppa and
     citation2 at ``large_scale``), each once.  ``overrides`` go to every
@@ -2533,18 +2642,20 @@ def phase_presets_slice(datasets, scale=1.0, large_scale=PRESET_SCALE,
             tr._refresh_ell(np.random.default_rng(1))
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t1
+        # one batch twice: a cut train split may hold only one
         pos, neg, batches = step_batches(tr, ds, 1)
         gen = torch.Generator(device=DEVICE).manual_seed(0)
-        state, train, s_train = drive_steps(tr, state, pos, neg, batches, gen)
+        state, train, s_train = drive_steps(tr, state, pos, neg, batches * 2, gen)
         evals, s_eval = timed_eval(tr, state)
-        launches += train["membership_launches_per_step"][0]
+        launches += sum(train["membership_launches_per_step"])
         launches += evals["membership_launches_eval"]
         shapes += s_train + s_eval
         out[f"{name}/{pred}"] = {
             "n_nodes": ds.n_nodes, **data, "setup_s": setup_s,
             "adj2_host_build_s": tr.adj2_seconds,
-            "step_ms": train["step_ms"][0], "loss": train["losses"][0],
-            "membership_launches_step": train["membership_launches_per_step"][0],
+            "step_ms": train["step_ms"], "losses": train["losses"],
+            "membership_launches_per_step": train["membership_launches_per_step"],
+            "program": train["program"],
             **{k: evals[k] for k in ("eval_s", "membership_launches_eval")},
             ("mrr" if mrr else "hits"): evals["mrr" if mrr else "hits"],
             "peak_mem_train_gb": train["peak_mem_train_gb"],
@@ -3237,6 +3348,10 @@ def run_phases(jobs) -> int:
     with captured_segment_sums() as seg_calls:
         b_launches, shapes, bench_losses = counted("bench_slice", phase_bench_slice, ds)
     seg_shapes, seg_shapes_err = phase_segment_sum_shapes(seg_calls)
+    torch.cuda.empty_cache()
+    # the same program eager and captured, bit for bit
+    counted("captured_step", phase_captured_step, ds)
+    torch.cuda.empty_cache()
     # one seed, one result: the main path, arm 1 and cn3, each run twice
     phase_determinism(ds)
     torch.cuda.empty_cache()

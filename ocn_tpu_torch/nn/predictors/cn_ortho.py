@@ -91,11 +91,15 @@ class _FramePredictor(nn.Module):
 
     def _head(self, xcns, xij: torch.Tensor, gen) -> torch.Tensor:
         """lin(a0*xcn1 + a1*xcn2 [+ a2*xcn3] + beta*xij), a = cumprod of
-        sigmoid(alpha)."""
-        a = torch.cumprod(torch.sigmoid(self.alpha), 0)
-        z = a[0] * xcns[0]
+        sigmoid(alpha), multiplied out factor by factor (the same products:
+        torch.cumprod's backward tests its input for zeros on the host, a
+        read of the card that a captured step cannot hold)."""
+        s = torch.sigmoid(self.alpha)
+        a = s[0]
+        z = a * xcns[0]
         for i in range(1, len(xcns)):
-            z = z + a[i] * xcns[i]
+            a = a * s[i]
+            z = z + a * xcns[i]
         return self.lin(z + self.beta * xij, gen)
 
 

@@ -9,7 +9,9 @@ It reads bench.py's OCN_BENCH_* knobs with the same defaults and the same
 per-dataset shapes, builds the same Config, synthetic dataset (BFS
 relabelled), ELL tables (their refresh charged to the step time as bench.py
 charges it), negatives, permutation and pre-staged batches, and times
-OCN_BENCH_STEPS training steps after one warm-up step, up to a
+OCN_BENCH_STEPS training steps after two untimed ones (the JAX script's
+one warm-up step compiles its program; the port's takes two, a warm-up and
+a capture, train/step_graph.py), up to a
 ``loss.item()`` that waits for the card.  It prints ONE JSON line with
 bench.py's keys: ``metric`` (train_edges_per_s_{predictor}_{dataset}),
 ``value``, ``unit``, ``vs_baseline`` (``baseline_note`` where there is no
@@ -221,8 +223,10 @@ def measure(defaults: bool = False, device="cuda"):
     batches = [tr.prepare_batch(pos[:, idx], neg[:, idx], idx) for idx in idxs]
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    pe, ne, mp, inv_p, inv_n = batches[0]
-    state, loss = tr.train_step(state, pe, ne, mp, gen, inv_p, inv_n)  # warm-up
+    # two untimed steps: on the card the step program's warm-up and its
+    # capture (train/step_graph.py); every timed step is one replay
+    for pe, ne, mp, inv_p, inv_n in (batches * 2)[:2]:
+        state, loss = tr.train_step(state, pe, ne, mp, gen, inv_p, inv_n)
     loss.item()
 
     t0 = time.perf_counter()

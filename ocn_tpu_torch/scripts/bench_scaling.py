@@ -10,8 +10,8 @@ ShardedGraphStep over a mesh of dp ranks, with its mask routing) or
 "sharded_prod" (node sharding through the Trainer's own config path, with
 ELL table shards and the dual-K interleave; at dp 1 the Trainer takes its
 single-device step, as the JAX Trainer does).  The graph is synthetic Cora
-at scale 1.0.  Each dp is one launch of dp ranks (parallel/launch.py): one
-warm step, a barrier, 3 timed steps up to a loss read on the host; the
+at scale 1.0.  Each dp is one launch of dp ranks (parallel/launch.py): two
+warm steps, a barrier, 3 timed steps up to a loss read on the host; the
 step time is the slowest rank's.  The line gives ms a step, links scored a
 second (2 * batch) and the efficiency against dp 1 at the same work a rank.
 
@@ -104,9 +104,10 @@ def make_step(tr, mode: str, dp: int, device, pos_b, neg, idx, mp):
 
 
 def rank_body(info, dp: int, per_dev: int, modes, steps: int = STEPS) -> dict:
-    """Every mode of ``modes`` on this rank: a warm step, a barrier, then
-    ``steps`` timed steps up to the last loss's host read.  Returns {mode:
-    {"ms": ms a step, "losses": the warm step's, then the timed ones',
+    """Every mode of ``modes`` on this rank: two warm steps (on one card the
+    step program's warm-up and capture, train/step_graph.py), a barrier,
+    then ``steps`` timed steps up to the last loss's host read.  Returns
+    {mode: {"ms": ms a step, "losses": the warm steps', then the timed ones',
     "membership_launches": the kernel's launches over all the steps}}."""
     import torch.distributed as dist
 
@@ -124,8 +125,10 @@ def rank_body(info, dp: int, per_dev: int, modes, steps: int = STEPS) -> dict:
         state = tr.init_state(0)
         gen = torch.Generator(device=dev).manual_seed(0)
         M.membership_counts.launches = 0
-        state, loss = step(state, gen)
-        losses = [loss.item()]
+        losses = []
+        for _ in range(2):
+            state, loss = step(state, gen)
+            losses.append(loss.item())
         dist.barrier()
         t0 = time.perf_counter()
         timed = []

@@ -61,12 +61,20 @@ windows).
 planes in bfloat16; the first Dense promotes to float32 (nn/mlp.py), so
 h, the frames and every parameter are float32, as in the JAX package.
 
+The step is one program (train/step_graph.py, the port of the JAX
+package's ``jax.jit`` of the step): on one CUDA device it is captured once
+as a CUDA graph and replayed every step, its inputs copied into static
+buffers; the mesh and node-sharded steps stay eager.  ``train_epoch`` keeps
+each step's loss on the device and reads them all once, at the end of the
+epoch, as the JAX loop does, so the host queues step k+1 while the card
+runs step k.
+
 Randomness (dropout, DropAdj, window offsets of capped rows off the tables)
-comes from one ``torch.Generator`` per epoch, seeded from the host NumPy
-generator that also draws the batch permutation and negatives, exactly as
-ocn_tpu draws its PRNG key; the ELL offsets come from a NumPy generator
-derived from the epoch number.  ``evaluate`` gives Hits@K, ``evaluate_mrr``
-the citation2 MRR.
+comes from the trainer's one ``torch.Generator`` (the step program's),
+reseeded each epoch from the host NumPy generator that also draws the
+batch permutation and negatives, exactly as ocn_tpu draws its PRNG key;
+the ELL offsets come from a NumPy generator derived from the epoch number.
+``evaluate`` gives Hits@K, ``evaluate_mrr`` the citation2 MRR.
 
 Multi-device (``dp_devices * tp_devices > 1``): the Trainer is made in each
 rank of a running process group (parallel/launch.py) and builds the dp x tp
@@ -110,6 +118,7 @@ from ocn_tpu_torch.sparse import ell as ELL
 from ocn_tpu_torch.sparse.csr import Graph, graph_from_numpy
 from ocn_tpu_torch.train import losses as L
 from ocn_tpu_torch.train import metrics as M
+from ocn_tpu_torch.train import step_graph
 
 
 def resolve_device(device) -> torch.device:
@@ -191,9 +200,15 @@ def _auto_rec_k(ds: LinkDataset, pad_deg: int) -> int:
 
 class Trainer:
     """Drives one (dataset, config) pair on one device, or on one rank of a
-    dp x tp mesh (the process group must be running)."""
+    dp x tp mesh (the process group must be running).
 
-    def __init__(self, cfg: Config, ds: LinkDataset, device="cuda"):
+    ``capture``: on one CUDA device the step is captured as a CUDA graph and
+    replayed (train/step_graph.py); False runs the same program eagerly, op
+    by op (the card tests' and chip_smoke.py's reference).  The mesh and
+    node-sharded steps are eager either way."""
+
+    def __init__(self, cfg: Config, ds: LinkDataset, device="cuda",
+                 capture: bool = True):
         require_supported(cfg)
         self.cfg = cfg
         self.ds = ds
@@ -248,6 +263,10 @@ class Trainer:
             t0 = time.perf_counter()
             self.adj3 = self._build_adj3(g_host)
             self.adj3_seconds = time.perf_counter() - t0
+        # host degrees of A^2 and A^3 for the ELL offsets: a refresh reads
+        # nothing back from the card
+        self._deg2_np, self._deg3_np = (
+            None if a is None else a.deg.cpu().numpy() for a in (self.adj2, self.adj3))
 
         # maskinput: train-edge -> nnz position map, once per dataset
         self.train_edges = np.asarray(ds.split_edge["train"]["edge"]).T  # (2, E)
@@ -271,6 +290,14 @@ class Trainer:
             and ((self.frame_based and a2_packs)
                  or (cfg.predictor in SELF_BUILDING
                      and (self.adj2 is None or a2_packs))))
+        # the one generator of the training steps, reseeded each epoch, and
+        # the single-device step as one program (captured on the card)
+        self.gen = torch.Generator(device=self.device)
+        self._program = None
+        if self.mesh is None:
+            self._program = step_graph.StepProgram(
+                self._step, self.gen,
+                capture=capture and step_graph.captures(cfg, self.device))
 
     def _build_adj2(self, g: Graph, keep_host: bool = False) -> Graph:
         ip = g.indptr.numpy()
@@ -338,34 +365,37 @@ class Trainer:
     def _refresh_ell(self, rng: np.random.Generator) -> None:
         """Re-draw the frozen window offsets on the host and rebuild the
         ELL tables (g at pad_deg, A^2 at pad_deg2 where there is one, cn6's
-        A^3 at k3, whose offsets are drawn last) on the device.  Node-sharded:
-        the tables are built on the host and only this rank's row-range
-        shards go to the device (parallel/sharded_graph.py)."""
+        A^3 at k3, whose offsets are drawn last) on the device, in place
+        once they exist: the step program reads them at fixed addresses.
+        Node-sharded: the tables are built on the host and only this rank's
+        row-range shards go to the device (parallel/sharded_graph.py)."""
         cfg = self.cfg
         if self.sharded:
             from ocn_tpu_torch.parallel.sharded_graph import refresh_sharded_ell
             self._ell = refresh_sharded_ell(self, rng)
             return
+        ell = {}
         off1 = ELL.draw_offsets(self._deg_np, cfg.pad_deg, rng)
         o1 = torch.as_tensor(off1, device=self.device)
-        self._ell = dict(
-            tbl1=ELL.build_ell(self.g.packed, self.g.indptr, o1, cfg.pad_deg),
-            off1=o1, off1_np=off1)
+        ell.update(tbl1=ELL.build_ell(self.g.packed, self.g.indptr, o1, cfg.pad_deg),
+                   off1=o1)
         if self.adj2 is not None:
-            off2 = ELL.draw_offsets(self.adj2.deg.cpu().numpy(), cfg.pad_deg2, rng)
-            o2 = torch.as_tensor(off2, device=self.device)
-            self._ell.update(
-                tbl2=ELL.build_ell(self.adj2.packed, self.adj2.indptr, o2,
-                                   cfg.pad_deg2),
-                off2=o2)
+            o2 = torch.as_tensor(ELL.draw_offsets(self._deg2_np, cfg.pad_deg2, rng),
+                                 device=self.device)
+            ell.update(tbl2=ELL.build_ell(self.adj2.packed, self.adj2.indptr, o2,
+                                          cfg.pad_deg2), off2=o2)
         if self.adj3 is not None:
             k3 = self._k3_width()
-            o3 = torch.as_tensor(
-                ELL.draw_offsets(self.adj3.deg.cpu().numpy(), k3, rng),
-                device=self.device)
-            self._ell.update(
-                tbl3=ELL.build_ell(self.adj3.packed, self.adj3.indptr, o3, k3),
-                off3=o3)
+            o3 = torch.as_tensor(ELL.draw_offsets(self._deg3_np, k3, rng),
+                                 device=self.device)
+            ell.update(tbl3=ELL.build_ell(self.adj3.packed, self.adj3.indptr, o3, k3),
+                       off3=o3)
+        if self._ell is None:
+            self._ell = ell
+        else:
+            for name, t in ell.items():
+                self._ell[name].copy_(t)
+        self._ell["off1_np"] = off1
 
     def _split_plan(self) -> Optional[Tuple[int, int]]:
         """Chunk counts (n_small_pos, n_small_neg) of the dual-K split, or
@@ -438,10 +468,13 @@ class Trainer:
         predictor.reset_parameters(gen)
         encoder.to(self.device)
         predictor.to(self.device)
+        # capturable on the card: its step count and bias corrections stay
+        # on the device, so the step can be captured, and the eager step runs
+        # the same kernels
         opt = torch.optim.Adam([
             {"params": list(encoder.parameters()), "lr": cfg.gnnlr},
             {"params": list(predictor.parameters()), "lr": cfg.prelr},
-        ], betas=(0.9, 0.999), eps=1e-8)
+        ], betas=(0.9, 0.999), eps=1e-8, capturable=self.device.type == "cuda")
         return TrainState(encoder, predictor, opt)
 
     # ------------------------------------------------------- chunked scoring
@@ -704,17 +737,29 @@ class Trainer:
         """One optimizer step on the inputs of ``prepare_batch`` (positive
         and negative (2, batch_size) edges, mask positions, and with the
         dual-K split the inverse permutations); returns (state, detached
-        loss)."""
+        loss).  On one device it runs through the step program (captured
+        on the card); its loss is the caller's to keep."""
         if self.sharded:
             return self._sharded_train().step(state, pos, neg, mask_positions,
                                               gen, inv_p, inv_n)
+        if self._program is None:
+            return state, self._step(state, pos, neg, mask_positions, gen,
+                                     inv_p, inv_n)
+        return state, self._program.run(state, pos, neg, mask_positions, gen,
+                                        inv_p, inv_n)
+
+    def _step(self, state: TrainState, pos, neg, mask_positions, gen,
+              inv_p=None, inv_n=None) -> torch.Tensor:
+        """The eager step: loss, backward, (mesh) gradient sums, Adam;
+        returns the detached loss.  The step program calls it on its
+        buffers: to warm up, to capture and off the card."""
         loss = self.step_loss(state, pos, neg, mask_positions, gen, inv_p, inv_n)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         if self.mesh is not None:
             self._sync_mesh_grads(state)
         state.opt.step()
-        return state, loss.detach()
+        return loss.detach()
 
     def _sharded_train(self):
         """The node-sharded train step of this rank (built on first use)."""
@@ -795,7 +840,8 @@ class Trainer:
                     epoch: int) -> Tuple[TrainState, float]:
         """One pass over the train edges in shuffled full batches (the ragged
         tail is dropped, as the reference's PermIterator does); returns the
-        mean batch loss."""
+        mean batch loss.  The losses stay on the device until the epoch
+        ends and are read back in one transfer."""
         cfg = self.cfg
         if self._use_ell and (
                 self._ell is None or (epoch - 1) % max(cfg.ell_refresh, 1) == 0):
@@ -822,8 +868,7 @@ class Trainer:
                 f"PermIterator semantics) - nothing will train.  Reduce "
                 f"batch_size (<= {e}).", RuntimeWarning, stacklevel=2)
             self._warned_zero_batches = True
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(rng.integers(2**31)))
+        self.gen.manual_seed(int(rng.integers(2**31)))
         losses = []
         for start in range(0, e - bs + 1, bs):
             idx = perm[start:start + bs]
@@ -834,9 +879,11 @@ class Trainer:
                 idx = idx[np.argsort(pos[0, idx], kind="stable")]
             pe, ne, mp, inv_p, inv_n = self.prepare_batch(
                 pos[:, idx], neg[:, idx], idx)
-            state, loss = self.train_step(state, pe, ne, mp, gen, inv_p, inv_n)
-            losses.append(loss.item())
-        return state, float(np.mean(losses)) if losses else 0.0
+            state, loss = self.train_step(state, pe, ne, mp, self.gen, inv_p, inv_n)
+            losses.append(loss)
+        if not losses:
+            return state, 0.0
+        return state, float(np.mean(torch.stack(losses).double().cpu().numpy()))
 
     # ------------------------------------------------------------------ eval
     @torch.no_grad()

@@ -5,7 +5,9 @@ kernel), and where the device time of a training step goes
 
 Kernels launched from the port's ctypes libraries appear in the profiler's
 trace under their CUDA names (``window_rows_kernel``, ``membership_kernel``,
-``seg_wide``, ...), like PyTorch's own.  ``chip_smoke.py`` reads these numbers; the CUDA
+``seg_wide``, ...), like PyTorch's own, and so do the kernels of a replayed
+CUDA graph (the captured train step, train/step_graph.py), one activity
+each.  ``chip_smoke.py`` reads these numbers; the CUDA
 events it also takes without a spin time whole calls, wrapper included.
 ``chrome_trace`` is the CLI's ``--profile_dir``: a region's trace as a
 file, the counterpart of ``jax.profiler.trace``.

@@ -215,7 +215,9 @@ def adam_from_jax(opt: torch.optim.Optimizer, encoder: nn.Module,
         mu = _as_parameters(module, load, jg["mu"])
         nu = _as_parameters(module, load, jg["nu"])
         for p, m, v in zip(params, mu, nu):
-            opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
+            # a capturable Adam (the card's) keeps its step on the device
+            dev = p.device if opt.defaults.get("capturable") else "cpu"
+            opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32, device=dev),
                             "exp_avg": m.clone(), "exp_avg_sq": v.clone()}
 
 

@@ -227,7 +227,7 @@ def test_ho_and_sddmm_phases_on_cpu(on_cpu, capsys):
 
 
 def test_presets_phase_on_cpu(on_cpu, capsys):
-    """Every README preset key takes one step and one eval (MRR for
+    """Every README preset key takes two steps and one eval (MRR for
     citation2) at a tiny scale."""
     launches, shapes = chip_smoke.phase_presets_slice(
         {}, scale=0.1, large_scale=0.002, eval_cut=256, mrr_cut=8,
@@ -235,13 +235,16 @@ def test_presets_phase_on_cpu(on_cpu, capsys):
     line = json.loads(capsys.readouterr().out)
     assert line["phase"] == "presets_slice" and len(line["keys"]) == 16
     for key, rec in line["keys"].items():
-        assert np.isfinite(rec["loss"]) and rec["step_ms"] > 0, key
+        assert np.isfinite(rec["losses"]).all() and len(rec["losses"]) == 2, key
+        assert min(rec["step_ms"]) > 0, key
         res = rec["mrr"] if key.startswith("citation2") else {
             k: v[1] for k, v in rec["hits"].items()}
         assert all(0.0 <= v <= 1.0 for v in res.values()), key
-        assert rec["membership_launches_step"] > 0, key
+        steps = rec["membership_launches_per_step"]
+        assert steps[0] == steps[1] > 0, key
     assert line["keys"]["citation2/spd"]["adj2_host_build_s"] == 0.0
-    assert launches == sum(r["membership_launches_step"] + r["membership_launches_eval"]
+    assert launches == sum(sum(r["membership_launches_per_step"])
+                           + r["membership_launches_eval"]
                            for r in line["keys"].values())
     assert sum(shapes.values()) == launches
 

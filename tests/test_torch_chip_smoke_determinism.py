@@ -2,7 +2,9 @@
 ``segment_sum_shapes`` on the calls that bench_slice makes, the
 ``determinism`` phase (bench_slice's program, arm 1 of the accuracy study
 and a cn3 step, each twice from seed 0, bit for bit), its bisection of a
-program that differs, and the segment sum's entry of the kernels line."""
+program that differs, the segment sum's entry of the kernels line, and
+``captured_step`` (bench_slice's program eager and through the step
+program, bit for bit; on the CPU both run eagerly)."""
 import json
 
 import pytest
@@ -85,3 +87,20 @@ def test_segment_sum_entry_requires_every_main_phase():
     by_phase["accuracy_slice"] = 0
     with pytest.raises(AssertionError, match="accuracy_slice"):
         chip_smoke.segment_sum_entry(1e-7, timing, by_phase, [], 0.0)
+
+
+def test_captured_step_phase_on_cpu(on_cpu, capsys):
+    """bench_slice's program through Trainer(..., capture=False) and through
+    the default step program: the same bits, launches a step and profiles."""
+    ds = synthetic_dataset("collab", seed=0, scale=0.01).reorder_bfs()
+    out = chip_smoke.phase_captured_step(ds, **TINY)
+    line = _lines(capsys)[0]
+    assert line["phase"] == "captured_step" and line["first_mismatch"] is None
+    assert line["tensors"] > 3
+    for mode in ("eager", "captured"):
+        rec = line[mode]
+        assert rec["membership_launches_per_step"] == [4, 4, 4]
+        assert min(rec["segment_sum_launches_per_step"]) > 0
+        assert rec["program"] == {"captured": False, "capture_s": None, "replays": 0}
+        assert rec["step_profile"]["window_ms"] > 0
+    assert out["eager"]["losses"] == out["captured"]["losses"]

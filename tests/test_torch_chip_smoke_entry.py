@@ -35,12 +35,13 @@ def test_bench_program_phase_on_cpu(on_cpu, monkeypatch, capsys):
         assert bench["metric"] == "train_edges_per_s_cn5_collab"
         assert bench["value"] > 0 and bench["anchor_rowgather_ms"] > 0
         assert "vs_defaults" not in bench
-    # 2 steps (one warm-up) of 16 chunks in frame groups of 8 with the
-    # dual-K split: 2 groups, 2 lookups each
-    assert defaults["membership_launches"] == 2 * 2 * 2
+    # 3 steps (two untimed: on the card the step program's warm-up and
+    # capture) of 16 chunks in frame groups of 8 with the dual-K split: 2
+    # groups, 2 lookups each
+    assert defaults["membership_launches"] == 3 * 2 * 2
     assert defaults["window_launches"] == 0
     # the window table: one window copy a chunk
-    assert variant["window_launches"] == window == 2 * 16
+    assert variant["window_launches"] == window == 3 * 16
     assert launches == defaults["membership_launches"] + variant["membership_launches"]
     # the knobs of the runs are gone again, the ones set before are back
     assert os.environ["OCN_BENCH_GROUP"] == "4" and "OCN_BENCH_SCALE" not in os.environ

@@ -627,3 +627,108 @@ def test_one_seed_one_result_on_the_card(cuda, pred):
                               + list(state.predictor.parameters())]))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+# the step program (train/step_graph.py): small versions of bench.py's
+# grouped bfloat16 program on the ELL tables and the dual-K split, of the
+# window table, and of cn3, dropout on
+CAPTURE_KW = dict(TRAIN_KW, batch_size=256, linkbatchsize=32, pad_deg=32,
+                  pad_deg2=16, ell_tables=True, k_small=8, gnndp=0.1, xdp=0.1,
+                  tdp=0.1, gnnedp=0.1, predp=0.1, preedp=0.1)
+CAPTURE_CASES = {
+    "cn5_ell_dualk_groups": dict(frame_group=2, dtype="bfloat16",
+                                 small_frac=0.5, small_frac_neg=0.375),
+    "cn5_window": dict(window_table=True),
+    "cn3": dict(predictor="cn3", pad_deg=16, k_small=4, rec_k=8, trndeg=16,
+                tstdeg=16, depth=1, learnpt=True),
+}
+
+
+def _held_tensors(state):
+    """Every parameter and buffer (the EMA among them) and Adam's state,
+    copied off the card."""
+    out = {f"enc.{k}": v for k, v in state.encoder.state_dict().items()}
+    out.update({f"pred.{k}": v for k, v in state.predictor.state_dict().items()})
+    for i, s in enumerate(state.opt.state.values()):
+        out.update({f"opt.{i}.{k}": v for k, v in s.items()})
+    return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+
+def _program_steps(cfg, ds, dev, capture, nsteps=3):
+    """``nsteps`` steps through train_step with a generator of the caller's,
+    the ELL tables refreshed in place after the first; (losses, tensors,
+    membership launches per step, the trainer)."""
+    tr = Trainer(cfg, ds, device=dev, capture=capture)
+    state = tr.init_state(0)
+    tr._refresh_ell(np.random.default_rng(1))
+    rng = np.random.default_rng(0)
+    e = tr.train_edges.shape[1]
+    perm = rng.permutation(e)
+    neg = B.negative_sampling(ds.edge_index, ds.n_nodes, e, rng)
+    bs = cfg.batch_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses, launches = [], []
+    for i in range(nsteps):
+        if i == 1:
+            tr._refresh_ell(np.random.default_rng(2))
+        idx = perm[i * bs:(i + 1) * bs]
+        inputs = tr.prepare_batch(tr.train_edges[:, idx], neg[:, idx], idx)
+        before = tm.membership_counts.launches
+        state, loss = tr.train_step(state, *inputs[:3], gen, *inputs[3:])
+        losses.append(loss)
+        launches.append(tm.membership_counts.launches - before)
+    torch.cuda.synchronize()
+    return torch.stack(losses).cpu(), _held_tensors(state), launches, tr
+
+
+@pytest.mark.parametrize("case", list(CAPTURE_CASES))
+def test_captured_steps_equal_eager_steps(cuda, case):
+    """The captured step against the eager one, bit for bit over three
+    steps (warm-up, capture and replay, replay): losses, parameters, Adam's
+    moments and step counts, the EMA buffers; and the same membership
+    launches a step, counted through the replays."""
+    ds = synthetic_dataset("Cora", seed=0, scale=0.3).reorder_bfs()
+    cfg = Config(**dict(CAPTURE_KW, **CAPTURE_CASES[case]))
+    runs = {c: _program_steps(cfg, ds, cuda, c) for c in (False, True)}
+    (l0, t0, m0, tr0), (l1, t1, m1, tr1) = runs[False], runs[True]
+    assert not tr0._program.capture and tr0._program.replays == 0
+    assert tr1._program.capture and tr1._program.replays == 2
+    assert tr1._program.capture_s > 0
+    assert torch.equal(l0, l1) and len(set(l0.tolist())) == 3
+    assert m0 == m1 and min(m0) > 0
+    assert t0.keys() == t1.keys()
+    for k in t0:
+        assert torch.equal(t0[k], t1[k]), k
+
+
+def test_captured_epochs_equal_eager_epochs(cuda):
+    """Two epochs through train_epoch: the trainer's generator, registered
+    with the graph once, reseeded each epoch; the ELL tables rebuilt in
+    place; the same mean losses bit for bit."""
+    ds = synthetic_dataset("Cora", seed=0, scale=0.3).reorder_bfs()
+    cfg = Config(**dict(CAPTURE_KW, **CAPTURE_CASES["cn5_ell_dualk_groups"]))
+    out = []
+    for capture in (False, True):
+        tr = Trainer(cfg, ds, device=cuda, capture=capture)
+        state = tr.init_state(0)
+        rng = np.random.default_rng(0)
+        out.append([tr.train_epoch(state, rng, ep)[1] for ep in (1, 2)])
+    assert out[0] == out[1]
+
+
+def test_the_profiler_sees_a_replayed_step(cuda):
+    """torch.profiler's trace holds the kernels of a replayed graph, the
+    port's segment-sum kernels among them."""
+    ds = synthetic_dataset("Cora", seed=0, scale=0.3).reorder_bfs()
+    cfg = Config(**dict(CAPTURE_KW, **CAPTURE_CASES["cn5_ell_dualk_groups"]))
+    *_, tr = _program_steps(cfg, ds, cuda, True, nsteps=2)
+    state = tr._program._held[0]
+    inputs = tr.prepare_batch(tr.train_edges[:, :256], tr.train_edges[:, 256:512],
+                              np.arange(256))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    replays = tr._program.replays
+    _, out = profiling.profile_region(
+        lambda: tr.train_step(state, *inputs[:3], gen, *inputs[3:])[1].item())
+    assert tr._program.replays == replays + 1
+    assert out["device_activities"] > 0 and out["device_busy_ms"] > 0
+    assert out["kernel_classes"]["segment_sum"]["launches"] > 0
