@@ -52,6 +52,16 @@ and the script exits nonzero:
              logged, and ocn_tpu_torch.train.hpo.main run 2 trials at 1
              epoch.  It runs this early because torch.profiler's trace keeps
              fewer of a short window's kernels as the process ages.
+3c. negatives - the epoch's uniform negatives (csrc/negatives.cu) at the
+             main path's shape, the collab graph below (n 235,868) and
+             collab's 1,179,052 train links: bit for bit against the plain version and the
+             native host sampler at three seeds, then timed beside its bound,
+             the links' copy to the host and, on the host, the plain version
+             and the sampler it replaces (phase_negatives).  The kernel's
+             launches, rounds and short draws are counted by phase, each set
+             to 0 just before the phase; the train epochs of the reference,
+             cli_slice, determinism, variants_slice and accuracy_slice phases
+             must launch it.
 4. slice   - the main path at full width: synthetic collab (scale 1.0,
              BFS-relabelled), the 3-layer gcn encoder with LN/res/JK at
              hidden 256, cn5 with pad_deg 64 / pad_deg2 64 and the host A^2
@@ -381,13 +391,14 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def phase_build():
-    from ocn_tpu_torch.ops import membership, row_gather, segment_sum, window_gather
+    from ocn_tpu_torch.ops import (
+        membership, negatives, row_gather, segment_sum, window_gather)
     from ocn_tpu_torch.utils import native, toolchain
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
-        kernels = [pool.submit(m.build)
-                   for m in (membership, window_gather, row_gather, segment_sum)]
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        kernels = [pool.submit(m.build) for m in (membership, window_gather, row_gather,
+                                                  segment_sum, negatives)]
         host = pool.submit(toolchain.build_graphcore)
         kernel_libs = [k.result() for k in kernels]
         host_lib = host.result()
@@ -990,6 +1001,124 @@ def phase_kernels():
     return {"membership": (m_err, m_timing), "window": (w_err, w_timings),
             "row": (r_err, r_timing), "sorted_block": (b_err, b_timing),
             "window_bf16": (wb_err, wb_timing), "segment_sum": (s_err, s_timing)}
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host-clock ms of ``iters`` calls of ``fn`` (one warm call
+    first), the card synchronised before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+# the seeds of phase_negatives: the smallest (0 counts as 1), the first
+# epoch's of generator 0 (B.negative_seed), and the largest a generator draws
+NEGATIVE_SEEDS = (0, None, 2**62 - 1)
+# negatives an epoch at ogbl-collab's published train split; the synthetic
+# collab graph here splits off fewer train links (660,309)
+COLLAB_TRAIN_LINKS = 1179052
+
+
+def phase_negatives(ds):
+    """The epoch's uniform negatives (csrc/negatives.cu) at the main path's
+    shape: the train graph's CSR (``ds.as_graph()``, as the Trainer builds
+    it) on the card and COLLAB_TRAIN_LINKS links.  For each of NEGATIVE_SEEDS
+    the wrapper's links must equal its plain version's and the native host
+    sampler's (sorted keys) bit for bit, one round each.  Then timed: the
+    wrapper (``ms``: CUDA events over 20 calls, each reading its total
+    back), one round on the card (``device_ms``: its three kernels and the
+    reset of the running total, queued_device_ms), the copy of the links to
+    pageable host memory as ``train_epoch`` makes it and to a pinned buffer,
+    and on the host the plain version (``plain_ms``) and the parent's sampler
+    (``B.negative_sampling``: the keys sorted anew, then the native loop).
+    The bound reads indptr and col once and writes the links once."""
+    from ocn_tpu_torch.ops import negatives as N
+    from ocn_tpu_torch.sparse import build as B
+    from ocn_tpu_torch.utils import native, profiling
+
+    t0 = time.perf_counter()
+    g = ds.as_graph()
+    n, num = ds.n_nodes, COLLAB_TRAIN_LINKS
+    nnz = int(g.indptr[-1])
+    ip, col = g.indptr.to("cuda"), g.col.to("cuda")
+    seeds = [B.negative_seed(np.random.default_rng(0)) if s is None else s
+             for s in NEGATIVE_SEEDS]
+    skeys = B.edge_keys(ds.edge_index, n)
+    rounds = N.negatives.rounds
+    for seed in seeds:
+        got = N.negatives(ip, col, n, num, seed).cpu().numpy()
+        keys = native.load().negative_sampling(skeys, n, num, seed)
+        if got.shape != (2, num) or not (
+                np.array_equal(got, N.negatives_plain(g.indptr, g.col, n, num, seed).numpy())
+                and np.array_equal(got, np.stack([keys // n, keys % n]))):
+            raise AssertionError(f"negatives at seed {seed}: the kernel's "
+                                 f"{got.shape[1]} links differ from the host's")
+    if N.negatives.rounds - rounds != len(seeds):
+        raise AssertionError(f"negatives: {N.negatives.rounds - rounds} rounds "
+                             f"for {len(seeds)} calls")
+    ms = cuda_time_ms(lambda: N.negatives(ip, col, n, num, seeds[1]), iters=20,
+                      warmup=3)
+    size = N.round_size(num)
+    blocks = N._lib().ocn_negatives_blocks(size)
+    out = torch.empty((2, num), dtype=torch.int64, device="cuda")
+    counts = torch.empty(blocks, dtype=torch.int32, device="cuda")
+    offsets = torch.empty(blocks, dtype=torch.int64, device="cuda")
+    total = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+    def one_round():
+        total.zero_()
+        N._launch_round(ip, col, n, seeds[1], 0, size, num, out, counts, offsets,
+                        total)
+
+    dev_ms = profiling.queued_device_ms(one_round)
+    if int(total.item()) < num:
+        raise AssertionError("negatives: one round filled "
+                             f"{int(total.item())} of {num} links")
+    pinned = torch.empty((2, num), dtype=torch.int64, pin_memory=True)
+    copy_ms = host_ms(lambda: out.cpu(), 10)
+    pinned_copy_ms = host_ms(lambda: pinned.copy_(out), 10)
+    plain_ms = host_ms(lambda: N.negatives_plain(g.indptr, g.col, n, num, seeds[1]), 3)
+    host_sampler_ms = host_ms(lambda: B.negative_sampling(
+        ds.edge_index, n, num, np.random.default_rng(0)), 3)
+    timing = {"shape": [n, nnz, num], "ms": ms, "device_ms": dev_ms,
+              "plain_ms": plain_ms, "host_sampler_ms": host_sampler_ms,
+              "copy_ms": copy_ms, "pinned_copy_ms": pinned_copy_ms,
+              **bound((n + 1) * 4 + nnz * 4 + 2 * num * 8, 0)}
+    emit({"phase": "negatives", "seconds": time.perf_counter() - t0,
+          "seeds": seeds, "rounds_a_call": 1, "timing": timing})
+    del ip, col, out, counts, offsets, total, pinned
+    return timing
+
+
+# the phases that run train_epoch on the card with uniform negatives, whose
+# kernel launches make up the negatives' "launches"
+NEGATIVES_MAIN = ("reference", "cli_slice", "determinism", "variants_slice",
+                  "accuracy_slice")
+
+
+def negatives_entry(timing, by_phase):
+    """The negatives' entry of the kernels line: its launches, rounds and
+    short draws by phase (each read with the counters set to 0 just
+    before the phase), the launches summed over NEGATIVES_MAIN; it fails if
+    a main phase never launched it."""
+    from ocn_tpu_torch.ops import negatives
+
+    idle = [k for k in NEGATIVES_MAIN if not by_phase.get(k, {}).get("launches")]
+    if idle:
+        raise AssertionError(f"negatives never launched in {idle}")
+    return kernel_entry(
+        "negatives", negatives, negatives.REPLACES,
+        sum(by_phase[k]["launches"] for k in NEGATIVES_MAIN), 0, timing,
+        replaces_what="the host sampler (native/graphcore.cpp "
+                      "gc_negative_sampling), not a Pallas kernel",
+        host_sampler_ms=timing["host_sampler_ms"], copy_ms=timing["copy_ms"],
+        pinned_copy_ms=timing["pinned_copy_ms"],
+        **{f"{key}_{k}": c[key] for k, c in by_phase.items()
+           for key in ("launches", "rounds", "short") if c[key]})
 
 
 REFERENCE_DATA = ("Cora", "ppa", "citation2")
@@ -3319,21 +3448,28 @@ def phase_scaling_bench(dps=SCALING_DPS, per_dev=512, steps=None):
 
 def run_phases(jobs) -> int:
     from ocn_tpu_torch.data.loaders import synthetic_dataset
-    from ocn_tpu_torch.ops import membership, row_gather, segment_sum, window_gather
+    from ocn_tpu_torch.ops import (
+        membership, negatives, row_gather, segment_sum, window_gather)
 
-    seg = {}
+    seg, neg = {}, {}
+    neg_counts = ("launches", "rounds", "short")
 
     def counted(name, phase, *args, **kw):
         """phase(*args, **kw), its segment-sum launches in this process
-        kept as seg[name]: the count set to 0 just before, read just after."""
+        kept as seg[name] and its negatives' launches, rounds and short
+        draws as neg[name]: the counts set to 0 just before, read just
+        after."""
         segment_sum.segment_sum_raw.launches = 0
+        for key in neg_counts:
+            setattr(negatives.negatives, key, 0)
         out = phase(*args, **kw)
         seg[name] = segment_sum.segment_sum_raw.launches
+        neg[name] = {key: getattr(negatives.negatives, key) for key in neg_counts}
         return out
 
     smi = phase_build()
     kern = phase_kernels()
-    phase_reference()
+    counted("reference", phase_reference)
     # early in the process: torch.profiler's trace keeps fewer of a short
     # window's kernels as the process ages (PERF.md section 6, PR 6)
     cli_launches = counted("cli_slice", phase_cli_slice)
@@ -3341,6 +3477,8 @@ def run_phases(jobs) -> int:
     t0 = time.perf_counter()
     ds = synthetic_dataset("collab", seed=0, scale=1.0).reorder_bfs()
     t_data = time.perf_counter() - t0
+    neg_timing = phase_negatives(ds)
+    torch.cuda.empty_cache()
     m_launches = counted("slice", phase_slice, ds, t_data)
     torch.cuda.empty_cache()
     w_train, w_eval = counted("window_slice", phase_window_slice, ds)
@@ -3353,7 +3491,7 @@ def run_phases(jobs) -> int:
     counted("captured_step", phase_captured_step, ds)
     torch.cuda.empty_cache()
     # one seed, one result: the main path, arm 1 and cn3, each run twice
-    phase_determinism(ds)
+    counted("determinism", phase_determinism, ds)
     torch.cuda.empty_cache()
     # the multi-device tier: ranks sharing the card, with their reference
     # cases on phase 3's Cora graph
@@ -3447,6 +3585,7 @@ def run_phases(jobs) -> int:
                      g_launches["sorted_block_rows"], *kern["sorted_block"],
                      gather_bench_ms=g_variants["onehot_mxu"]["ms"]),
         segment_sum_entry(*kern["segment_sum"], seg, seg_shapes, seg_shapes_err),
+        negatives_entry(neg_timing, neg),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -179,6 +179,18 @@ def adj2_csr(
     return np.asarray(out_i, np.int32), out_col, out_val
 
 
+def edge_keys(edge_index: np.ndarray, n_nodes: int) -> np.ndarray:
+    """The sorted int64 keys u * n_nodes + v of the edges (u, v)."""
+    ei = np.asarray(edge_index, np.int64)
+    return np.sort(ei[0] * n_nodes + ei[1])
+
+
+def negative_seed(rng: np.random.Generator) -> int:
+    """The seed of one draw of the native sampler (and of the card's,
+    ops/negatives.py): one integer from ``rng``."""
+    return int(rng.integers(1, 2**62))
+
+
 def negative_sampling(
     edge_index: np.ndarray,
     n_nodes: int,
@@ -194,15 +206,19 @@ def negative_sampling(
     would corrupt training).
     """
     rng = rng or np.random.default_rng()
-    ei = np.asarray(edge_index, np.int64)
-    skeys = np.sort(ei[0] * n_nodes + ei[1])
+    skeys = edge_keys(edge_index, n_nodes)
     nat = native.load()
     if nat is not None:
-        keys = nat.negative_sampling(
-            skeys, n_nodes, num_samples, int(rng.integers(1, 2**62))
-        )
+        keys = nat.negative_sampling(skeys, n_nodes, num_samples, negative_seed(rng))
         if keys.shape[0] == num_samples:
             return np.stack([keys // n_nodes, keys % n_nodes]).astype(np.int64)
+    return rejection_rounds(skeys, n_nodes, num_samples, rng)
+
+
+def rejection_rounds(skeys: np.ndarray, n_nodes: int, num_samples: int,
+                     rng: np.random.Generator) -> np.ndarray:
+    """``negative_sampling``'s NumPy rounds against the sorted edge keys
+    ``skeys``: where no native sampler is built, or it returned short."""
     out = np.empty(num_samples, np.int64)
     filled = 0
     for _ in range(8):
@@ -222,7 +238,7 @@ def negative_sampling(
     if filled < num_samples:  # pathological near-complete graph
         raise RuntimeError(
             f"negative_sampling filled only {filled}/{num_samples} after 8 "
-            f"rejection rounds (graph too dense: {ei.shape[1]} edges over "
+            f"rejection rounds (graph too dense: {skeys.shape[0]} edges over "
             f"{n_nodes} nodes); reduce num_samples or sample negatives "
             "another way"
         )

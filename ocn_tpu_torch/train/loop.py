@@ -67,7 +67,9 @@ as a CUDA graph and replayed every step, its inputs copied into static
 buffers; the mesh and node-sharded steps stay eager.  ``train_epoch`` keeps
 each step's loss on the device and reads them all once, at the end of the
 epoch, as the JAX loop does, so the host queues step k+1 while the card
-runs step k.
+runs step k.  Where the train graph is on a CUDA device, the epoch's
+uniform negatives are drawn there from its CSR (ops/negatives.py), the
+host sampler's links and draws from the same stream, bit for bit.
 
 Randomness (dropout, DropAdj, window offsets of capped rows off the tables)
 comes from the trainer's one ``torch.Generator`` (the step program's),
@@ -111,6 +113,7 @@ from ocn_tpu_torch.nn.encoder import GCNEncoder
 from ocn_tpu_torch.nn.predictors import (
     FRAME_BASED, SELF_BUILDING, THREE_HOP, build_predictor)
 from ocn_tpu_torch.ops.frame import CNFrame, cn3_frame, cn_frames
+from ocn_tpu_torch.ops.negatives import negatives
 from ocn_tpu_torch.ops.sample import sample_frames
 from ocn_tpu_torch.parallel import shard
 from ocn_tpu_torch.sparse import build as B
@@ -836,6 +839,22 @@ class Trainer:
             mp, inv_p, inv_n,
         )
 
+    def _graph_negatives(self, num: int, rng: np.random.Generator) -> np.ndarray:
+        """(2, num) uniform negatives drawn from the train graph's CSR where
+        it lies (ops/negatives.py): ``B.negative_sampling``'s links for the
+        same ``rng``, which draws the same seed from it (the train CSR holds
+        the pairs of ``ds.edge_index``, both directions).  A draw whose
+        candidates run out (``negatives.short``) takes the host sampler's
+        second stage, as there: its NumPy rounds draw on from the stream, on
+        the host, and fill the ``num`` links or raise its error.  A draw on
+        the card is copied once to the host, for ``prepare_batch``'s host
+        sort, and its device copy freed before the epoch's first step."""
+        n = self.ds.n_nodes
+        drawn = negatives(self.g.indptr, self.g.col, n, num, B.negative_seed(rng))
+        if drawn.shape[1] < num:
+            return B.rejection_rounds(B.edge_keys(self.ds.edge_index, n), n, num, rng)
+        return drawn.cpu().numpy()
+
     def train_epoch(self, state: TrainState, rng: np.random.Generator,
                     epoch: int) -> Tuple[TrainState, float]:
         """One pass over the train edges in shuffled full batches (the ragged
@@ -854,6 +873,8 @@ class Trainer:
         if cfg.neg_mode == "randint_target":
             # negatives keep the positive sources, uniform targets
             neg = np.stack([pos[0], rng.integers(0, self.ds.n_nodes, size=e)])
+        elif self._graph_device.type == "cuda":
+            neg = self._graph_negatives(e, rng)
         else:
             neg = B.negative_sampling(self.ds.edge_index, self.ds.n_nodes, e, rng)
         if cfg.increasealpha and state.sched:

@@ -184,6 +184,25 @@ def test_step_breakdown_ranks_kernels():
         {"name": "copy", "ms": 0.2, "launches": 2}]
 
 
+def test_negatives_entry_needs_every_main_phase():
+    """The kernels line's negatives entry sums the launches of the phases
+    that train epochs on the card, and fails where one never launched it."""
+    timing = {"shape": [5, 8, 4], "ms": 1.0, "device_ms": 0.5, "plain_ms": 9.0,
+              "host_sampler_ms": 12.0, "copy_ms": 0.2, "pinned_copy_ms": 0.1,
+              **chip_smoke.bound(100, 0)}
+    by_phase = {k: {"launches": 3, "rounds": 1, "short": 0}
+                for k in chip_smoke.NEGATIVES_MAIN}
+    by_phase["slice"] = {"launches": 0, "rounds": 0, "short": 0}
+    entry = chip_smoke.negatives_entry(timing, by_phase)
+    assert entry["name"] == "negatives" and entry["source"].endswith("negatives.cu")
+    assert entry["launches"] == 3 * len(chip_smoke.NEGATIVES_MAIN)
+    assert entry["rounds_reference"] == 1 and "launches_slice" not in entry
+    assert entry["bound_ms"] == pytest.approx(1e3 * 100 / chip_smoke.PEAK_BYTES_PER_S)
+    by_phase["cli_slice"]["launches"] = 0
+    with pytest.raises(AssertionError, match="cli_slice"):
+        chip_smoke.negatives_entry(timing, by_phase)
+
+
 def test_ho_and_sddmm_phases_on_cpu(on_cpu, capsys):
     """bench.py's ppa and citation2 shapes and the spd preset at a tiny
     size, with the launch counts the card run asserts: two membership

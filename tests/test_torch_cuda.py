@@ -1,5 +1,6 @@
 """The port on the card: the CUDA membership, window-gather, row-gather,
-sorted-block-gather and segment-sum kernels against their plain versions,
+sorted-block-gather, segment-sum and negatives kernels against their plain
+versions (and the negatives against the native host sampler),
 and the kernels' callers on CUDA tensors against the same calls on CPU
 tensors (the grouped bfloat16 steps among them), and two runs of one seed
 on the card against each other, bit for bit.  Every test here is marked ``cuda``
@@ -8,6 +9,8 @@ package, so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,7 @@ from ocn_tpu_torch.config import Config
 from ocn_tpu_torch.data.loaders import synthetic_dataset
 from ocn_tpu_torch.ops import frame as tf
 from ocn_tpu_torch.ops import membership as tm
+from ocn_tpu_torch.ops import negatives as tneg
 from ocn_tpu_torch.ops import row_gather as trg
 from ocn_tpu_torch.ops import segment_sum as tss
 from ocn_tpu_torch.ops import window_gather as tw
@@ -23,7 +27,7 @@ from ocn_tpu_torch.scripts import bench_gather as G
 from ocn_tpu_torch.sparse import build as B
 from ocn_tpu_torch.sparse.csr import graph_from_numpy
 from ocn_tpu_torch.train.loop import Trainer
-from ocn_tpu_torch.utils import profiling
+from ocn_tpu_torch.utils import native, profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -732,3 +736,140 @@ def test_the_profiler_sees_a_replayed_step(cuda):
     assert tr._program.replays == replays + 1
     assert out["device_activities"] > 0 and out["device_busy_ms"] > 0
     assert out["kernel_classes"]["segment_sum"]["launches"] > 0
+
+
+# the epoch's negatives (ops/negatives.py), on graphs of the kinds of
+# tests/test_torch_negatives.py: a BFS-relabelled one of 50,004 nodes, and
+# dense ones that take a second round, run short or accept nothing
+def _dense_edges(n, removed):
+    gone = {(u, u + 1) for u in range(removed)}
+    return np.array([(u, v) for u in range(n) for v in range(n)
+                     if u != v and (min(u, v), max(u, v)) not in gone], np.int64).T
+
+
+NEG_GRAPHS = {
+    "bfs50k": lambda: synthetic_dataset("collab", seed=2, scale=0.212).reorder_bfs(),
+    "dense_two_rounds": lambda: types.SimpleNamespace(edge_index=_dense_edges(16, 15),
+                                                      n_nodes=16),
+    "dense_short": lambda: types.SimpleNamespace(edge_index=_dense_edges(16, 1),
+                                                 n_nodes=16),
+    "complete": lambda: types.SimpleNamespace(edge_index=_dense_edges(12, 0), n_nodes=12),
+}
+ALL_ROUNDS = -(-tneg.max_attempts(1000) // tneg.round_size(1000))
+
+
+@pytest.mark.parametrize("graph,num,seed,rounds", [
+    ("bfs50k", None, 0, 1),
+    ("bfs50k", None, 3000000001, 1),
+    ("bfs50k", None, 2**62 - 1, 1),
+    ("bfs50k", 4097, 12345, 1),
+    ("dense_two_rounds", 1000, 5, 2),
+    ("dense_two_rounds", 1000, 0, 2),
+    ("dense_short", 1000, 9, ALL_ROUNDS),
+    ("complete", 1000, 3, ALL_ROUNDS),
+])
+def test_negatives_kernel_matches_the_host_sampler(cuda, graph, num, seed, rounds):
+    """The kernel against the native host sampler (sorted keys) and the
+    plain version, bit for bit, short returns included (each counted in
+    ``negatives.short``); the rounds each graph needs, three launches each."""
+    ds = NEG_GRAPHS[graph]()
+    n = ds.n_nodes
+    num = ds.edge_index.shape[1] if num is None else num
+    keys = native.load().negative_sampling(B.edge_keys(ds.edge_index, n), n, num, seed)
+    want = np.stack([keys // n, keys % n])
+    ip, col = B.csr_from_edge_index(ds.edge_index, n)
+    g = graph_from_numpy(ip, col, n)
+    plain = tneg.negatives(g.indptr, g.col, n, num, seed)
+    launches, before, short = (tneg.negatives.launches, tneg.negatives.rounds,
+                               tneg.negatives.short)
+    got = tneg.negatives(g.indptr.to(cuda), g.col.to(cuda), n, num, seed)
+    assert tneg.negatives.launches - launches == rounds * tneg.KERNELS_A_ROUND
+    assert tneg.negatives.rounds - before == rounds
+    assert tneg.negatives.short - short == (want.shape[1] < num)
+    assert got.is_cuda and got.dtype == torch.int64
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert np.array_equal(plain.numpy(), want)
+    if graph == "complete":
+        assert want.shape[1] == 0
+    elif graph == "dense_short":
+        assert 0 < want.shape[1] < num
+    else:
+        assert want.shape[1] == num
+
+
+def test_negatives_wrapper_rejects(cuda):
+    g = graph_from_numpy(*B.csr_from_edge_index(_dense_edges(8, 2), 8), 8)
+    ip, col = g.indptr.to(cuda), g.col.to(cuda)
+    with pytest.raises(TypeError):
+        tneg.negatives(ip.long(), col, 8, 10, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tneg.negatives(ip, torch.stack([col, col], 1)[:, 0], 8, 10, 0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tneg.negatives(ip, col.cpu(), 8, 10, 0)
+
+
+def test_a_short_card_draw_takes_the_host_rounds(cuda):
+    """A card draw whose candidates run out goes on with the host
+    sampler's NumPy rounds from the same stream (``Trainer._graph_negatives``
+    over card tensors): the error (those rounds draw fewer candidates than
+    the card tried, so here they run out too) and the stream after it are
+    ``B.negative_sampling``'s, and ``negatives.short`` counts it; a draw
+    that fills gives its links."""
+    for graph, num, seed in (("dense_short", 1000, 2), ("complete", 30, 1),
+                             ("dense_two_rounds", 1000, 4)):
+        ds = NEG_GRAPHS[graph]()
+        n = ds.n_nodes
+        g = graph_from_numpy(*B.csr_from_edge_index(ds.edge_index, n), n)
+        tr = types.SimpleNamespace(ds=ds, g=types.SimpleNamespace(
+            indptr=g.indptr.to(cuda), col=g.col.to(cuda)))
+        short = tneg.negatives.short
+        outs = []
+        for draw in (lambda r: Trainer._graph_negatives(tr, num, r),
+                     lambda r: B.negative_sampling(ds.edge_index, n, num, r)):
+            rng = np.random.default_rng(seed)
+            try:
+                outs.append((draw(rng), rng.integers(2**62)))
+            except RuntimeError as e:
+                outs.append((str(e), rng.integers(2**62)))
+        assert tneg.negatives.short - short == (graph != "dense_two_rounds")
+        assert isinstance(outs[1][0], str) == (graph != "dense_two_rounds")
+        assert outs[0][1] == outs[1][1]
+        if isinstance(outs[1][0], str):
+            assert outs[0][0] == outs[1][0]
+        else:
+            assert np.array_equal(outs[0][0], outs[1][0])
+            assert outs[0][0].shape == (2, num)
+
+
+def _host(t):
+    return None if t is None else t.cpu()
+
+
+def test_card_epochs_draw_the_cpu_negatives(cuda):
+    """Two epochs on the card draw their negatives with the kernel, one
+    round an epoch, and feed the steps the CPU trainer's batches (drawn by
+    the host sampler), generator seeds and stream, bit for bit."""
+    ds = synthetic_dataset("Cora", seed=0, scale=0.3).reorder_bfs()
+    cfg = Config(**dict(TRAIN_KW, batch_size=256, ell_tables=True, k_small=8))
+    runs = []
+    for dev in ("cpu", cuda):
+        tr = Trainer(cfg, ds, device=dev)
+        state = tr.init_state(0)
+        calls = []
+
+        def recording(state, pos, neg, mp, gen, inv_p=None, inv_n=None, _c=calls):
+            _c.append((pos.cpu(), neg.cpu(), _host(inv_p), _host(inv_n), gen.initial_seed()))
+            return state, torch.zeros((), device=pos.device)
+
+        tr.train_step = recording
+        rng = np.random.default_rng(7)
+        rounds = tneg.negatives.rounds
+        tr.train_epoch(state, rng, 1)
+        tr.train_epoch(state, rng, 2)
+        runs.append((calls, rng.integers(2**62), tneg.negatives.rounds - rounds))
+    (c0, r0, l0), (c1, r1, l1) = runs
+    assert (l0, l1) == (0, 2) and r0 == r1
+    assert len(c0) == len(c1) >= 4
+    for a, b in zip(c0, c1):
+        assert all(torch.equal(x, y) for x, y in zip(a[:4], b[:4])) and a[4] == b[4]
+        assert a[2] is not None
